@@ -31,6 +31,9 @@ class Config:
     point_num: int = 1024
     input_size: int = 128
     feature_para: Tuple[float, ...] = (0.8,)
+    # the model's compute dtype, build_kpfusion's default: 'float32' |
+    # 'bfloat16'. StreamingEngine takes its own (bfloat16), as JAX's does.
+    compute_dtype: str = 'float32'
     seed: int = 23455
 
     @property

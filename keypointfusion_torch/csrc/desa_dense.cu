@@ -30,17 +30,20 @@
 //     gathered, so the work is what the data needs;
 //   * the group is processed in tiles of kT = 16 slots staged in shared
 //     memory as [channel][slot]; each weight a thread loads serves 16
-//     slots, and the 16 slot values come as four broadcast float4 loads;
+//     slots, and the 16 slot values come as four broadcast float4 loads
+//     (d2, the selection and the tile product are in desa_common.cuh);
 //   * h1 never leaves shared memory, and the 512 -> 128 fusion layer runs
 //     in the same block, so the only write to device memory is [B,J,C].
 
 #include <cuda_runtime.h>
 
+#include "desa_common.cuh"
+
 namespace {
 
-constexpr int kC = 128;  // channels == threads per block
+using desa::kC;
+using desa::kT;
 constexpr int kS = 64;   // most group slots per radius
-constexpr int kT = 16;   // slots per tile
 constexpr int kR = 3;    // radii
 
 struct Scales {
@@ -48,11 +51,6 @@ struct Scales {
   float r_sq[kR];
   int s[kR];
 };
-
-__device__ __forceinline__ float sqnorm3(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                   __fmul_rn(z, z));
-}
 
 __global__ void __launch_bounds__(kC)
 desa_dense_kernel(const float* __restrict__ pcl_feat,   // [B,N,C]
@@ -83,57 +81,13 @@ desa_dense_kernel(const float* __restrict__ pcl_feat,   // [B,N,C]
   const float* pfeat = pcl_feat + static_cast<size_t>(b) * n * kC;
   const float* nfeat = node_feat + static_cast<size_t>(b) * j_num * kC;
   const float qx = nxyz[3 * j], qy = nxyz[3 * j + 1], qz = nxyz[3 * j + 2];
-  const float q2 = sqnorm3(qx, qy, qz);
   const float fj = nfeat[static_cast<size_t>(j) * kC + c];
 
-  for (int m = c; m < m_total; m += kC) {
-    const float* x = m < n ? pxyz + 3 * m : nxyz + 3 * (m - n);
-    const float sx = x[0], sy = x[1], sz = x[2];
-    const float cross =
-        __fmaf_rn(qz, sz, __fmaf_rn(qy, sy, __fmul_rn(qx, sx)));
-    const float d =
-        __fsub_rn(__fadd_rn(q2, sqnorm3(sx, sy, sz)), __fmul_rn(2.0f, cross));
-    s_d2[m] = fmaxf(d, 0.0f);
-  }
+  desa::support_sq_dists(s_d2, pxyz, nxyz, n, m_total, qx, qy, qz);
   __syncthreads();
 
   for (int i = 0; i < kR; ++i) {
-    const int s_max = sc.s[i];
-    if (c < 32) {
-      // ordered compaction of the first s_max in-ball indices
-      const int lane = c;
-      int cnt = 0;
-      for (int base = 0; base < m_total && cnt < s_max; base += 32) {
-        const int m = base + lane;
-        const bool in = m < m_total && s_d2[m] < sc.r_sq[i];
-        const unsigned ball = __ballot_sync(0xffffffffu, in);
-        const int rank = cnt + __popc(ball & ((1u << lane) - 1u));
-        if (in && rank < s_max) s_sel[rank] = m;
-        cnt += __popc(ball);
-      }
-      if (cnt == 0) {
-        // empty ball: the closest point, lowest index among equals
-        float bd = __int_as_float(0x7f800000);
-        int bi = 0x7fffffff;
-        for (int m = lane; m < m_total; m += 32) {
-          if (s_d2[m] < bd) {
-            bd = s_d2[m];
-            bi = m;
-          }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          const float od = __shfl_down_sync(0xffffffffu, bd, off);
-          const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-          if (od < bd || (od == bd && oi < bi)) {
-            bd = od;
-            bi = oi;
-          }
-        }
-        if (lane == 0) s_sel[0] = bi;
-        cnt = 1;
-      }
-      if (lane == 0) s_nsel = min(cnt, s_max);
-    }
+    desa::select_group(s_d2, m_total, sc.r_sq[i], sc.s[i], s_sel, &s_nsel);
     __syncthreads();
     const int nsel = s_nsel;
 
@@ -177,38 +131,14 @@ desa_dense_kernel(const float* __restrict__ pcl_feat,   // [B,N,C]
         acc[t] = fmaf(wl1, s_rel[3 * t + 1], acc[t]);
         acc[t] = fmaf(wl2, s_rel[3 * t + 2], acc[t]);
       }
-#pragma unroll 4
-      for (int k = 0; k < kC; ++k) {
-        const float w = __ldg(wf_i + k * kC + c);
-        const float4* xv = reinterpret_cast<const float4*>(s_x + k * kT);
-#pragma unroll
-        for (int q = 0; q < kT / 4; ++q) {
-          const float4 v = xv[q];
-          acc[4 * q + 0] = fmaf(w, v.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(w, v.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(w, v.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(w, v.w, acc[4 * q + 3]);
-        }
-      }
+      desa::tile_dense<false>(wf_i + c, s_x, acc);
 #pragma unroll
       for (int t = 0; t < kT; ++t) s_h[c * kT + t] = fmaxf(acc[t], 0.0f);
       __syncthreads();
 
 #pragma unroll
       for (int t = 0; t < kT; ++t) acc[t] = bias2;
-#pragma unroll 4
-      for (int k = 0; k < kC; ++k) {
-        const float w = __ldg(w2_i + k * kC + c);
-        const float4* hv = reinterpret_cast<const float4*>(s_h + k * kT);
-#pragma unroll
-        for (int q = 0; q < kT / 4; ++q) {
-          const float4 v = hv[q];
-          acc[4 * q + 0] = fmaf(w, v.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(w, v.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(w, v.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(w, v.w, acc[4 * q + 3]);
-        }
-      }
+      desa::tile_dense<false>(w2_i + c, s_h, acc);
 #pragma unroll
       for (int t = 0; t < kT; ++t) {
         if (t < nt) mx = fmaxf(mx, fmaxf(acc[t], 0.0f));

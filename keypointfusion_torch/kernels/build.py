@@ -5,8 +5,9 @@ sm_90a into a shared library with a plain C interface and loaded with
 ctypes. Nothing is built when a module is imported: a kernel is built the
 first time it is launched, or by `build()`, which starts one nvcc per
 missing library, all at once. Libraries land in keypointfusion_torch/_build/
-under a name that carries a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded.
+under a name that carries a hash of the source, the shared headers
+(csrc/*.cuh) and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.
 
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError() as an int; `CudaKernel.launch` raises when that is not
@@ -62,7 +63,9 @@ class CudaKernel:
 
     @property
     def library(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
+        headers = b''.join(h.read_bytes()
+                           for h in sorted(CSRC_DIR.glob('*.cuh')))
+        digest = hashlib.sha256(self.source.read_bytes() + headers
                                 + ' '.join(NVCC_FLAGS).encode()
                                 ).hexdigest()[:16]
         return BUILD_DIR / f'{self.source.stem}-{digest}.so'
@@ -87,13 +90,14 @@ class CudaKernel:
         self.launches += 1
 
 
-def check_tensor(t, name: str, shape, device) -> None:
-    """Raise unless t is a contiguous float32 tensor of `shape` on
+def check_tensor(t, name: str, shape, device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless t is a contiguous tensor of `dtype` and `shape` on
     `device`: what every kernel wrapper takes."""
     if t.device != device:
         raise ValueError(f'{name} is on {t.device}, expected {device}')
-    if t.dtype != torch.float32:
-        raise TypeError(f'{name} must be float32, got {t.dtype}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
                          f'{tuple(shape)}')

@@ -1,11 +1,30 @@
-"""Fused point -> pixel feature sampler (K2), CUDA kernel and plain version.
+"""Fused point -> pixel feature sampler (K2), CUDA kernels and plain versions.
 
 Port of keypointfusion_tpu/kernels/pixel_sampler_pallas.py:
-sample_pixel_features_fused in its exact ('highest') mode. Per cloud
-point: float32 d2 to every back-projected pixel center by the expansion
-(ops/pairwise.py), the 4 nearest with the lowest index winning ties,
-weights 1/(d2+1e-8) normalized by their sum + 1e-8, and the weighted sum
-of those 4 pixels' feature rows. The kernel is csrc/pixel_sampler.cu.
+sample_pixel_features_fused, in its two modes, each a kernel of its own:
+
+'highest' (float32 model; csrc/pixel_sampler.cu): per cloud point, float32
+d2 to every back-projected pixel centre by the expansion (ops/pairwise.py),
+the 4 nearest with the lowest index winning ties, weights 1/(d2+1e-8)
+normalized by their sum + 1e-8, and the weighted sum of those 4 pixels'
+feature rows. Returns float32.
+
+'default' (bfloat16 serving; csrc/pixel_sampler_serving.cu): what the JAX
+kernel computes in interpret mode (its lines 66-83, 134-156, 176-195):
+  * d2 as the sum of squared coordinate differences, rounded as XLA's CPU
+    build contracts `((0 + dx*dx) + dy*dy) + dz*dz` (measured, bit for
+    bit): fma(dz, dz, fma(dx, dx, dy*dy));
+  * a threshold, not a top-4: t0 = min d2 and t_{i+1} = min{d2 > t_i}, so
+    t3 is the 4th smallest DISTINCT value (1e30 when a row has fewer than
+    4), and every pixel with d2 <= t3 is selected. Exact ties admit whole
+    rings, so a point may select many more than 4 pixels;
+  * w = bf16(1/(d2 + 1e-8)); the features are bfloat16; the products are
+    summed in float32 and so is the normalizer, sum(w) + 1e-8;
+  * out = bf16(sum / normalizer). Returns bfloat16.
+Here the sums run over the selected pixels in index order, in the kernel
+and in its plain version alike, so the two agree bit for bit; XLA's dense
+product sums them in its own order (one bfloat16 ulp at most after the
+final rounding).
 """
 
 from __future__ import annotations
@@ -18,46 +37,102 @@ from keypointfusion_torch.geometry.pcl import (
     inverse_distance_weights, sample_pixel_features, topk_smallest,
 )
 from keypointfusion_torch.kernels.build import CudaKernel, check_tensor
-from keypointfusion_torch.ops.pairwise import pairwise_sqdist
+from keypointfusion_torch.ops.pairwise import fma, pairwise_sqdist
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel('pixel_sampler', 'pixel_sampler.cu', 'kpf_pixel_sampler',
                     [_P, _P, _P, _P, _I, _I, _I, _I, _P])
-K_NEAREST = 4            # the only k the kernel takes
+SERVING_KERNEL = CudaKernel(
+    'pixel_sampler_serving', 'pixel_sampler_serving.cu',
+    'kpf_pixel_sampler_serving', [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+K_NEAREST = 4            # the only k the kernels take
 MAX_HW = 2048            # pixels staged in shared memory per batch element
+MAX_SERVING_C = 384      # channels a lane of the serving kernel accumulates
+NO_THRESHOLD = 1e30      # the JAX kernel's BIG
 
 
-def sample_pixel_features_plain(pcl_xyz, img_xyz, flat_feat, k: int = 4):
+def serving_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [B,N,3], b [B,M,3] -> [B,N,M] float32 sums of squared differences,
+    rounded as fma(dz, dz, fma(dx, dx, dy*dy))."""
+    dx, dy, dz = (a.float()[:, :, None, i] - b.float()[:, None, :, i]
+                  for i in range(3))
+    return fma(dz, dz, fma(dx, dx, dy * dy))
+
+
+def serving_threshold(d2: torch.Tensor, k: int = K_NEAREST) -> torch.Tensor:
+    """The k-th smallest distinct value of each row of d2 [..., M] (1e30
+    when a row has fewer than k), keepdim."""
+    big = torch.full_like(d2, NO_THRESHOLD)
+    thresh = d2.amin(-1, keepdim=True)
+    for _ in range(k - 1):
+        thresh = torch.where(d2 <= thresh, big, d2).amin(-1, keepdim=True)
+    return thresh
+
+
+def sample_pixel_features_plain(pcl_xyz, img_xyz, flat_feat, k: int = 4,
+                                mode: str = 'highest'):
     """pcl_xyz [B,N,3], img_xyz [B,HW,3], flat_feat [B,HW,C] -> [B,N,C]
-    float32, in plain PyTorch."""
-    dist, idx = topk_smallest(pairwise_sqdist(pcl_xyz, img_xyz), k)
-    return sample_pixel_features(flat_feat, inverse_distance_weights(dist),
-                                 idx)
+    (float32 in 'highest', bfloat16 in 'default'), in plain PyTorch."""
+    if mode == 'highest':
+        dist, idx = topk_smallest(pairwise_sqdist(pcl_xyz, img_xyz), k)
+        return sample_pixel_features(flat_feat, inverse_distance_weights(dist),
+                                     idx)
+    if mode != 'default':
+        raise ValueError(f'unknown mode {mode!r}')
+    d2 = serving_sqdist(pcl_xyz, img_xyz)                   # [B,N,HW]
+    selected = d2 <= serving_threshold(d2, k)
+    w = (1.0 / (d2 + 1e-8)).to(torch.bfloat16).float()
+    w = torch.where(selected, w, torch.zeros_like(w))
+    # the selected pixels in index order, as [B,N,S] slots (S = the most
+    # any point selects); empty slots carry weight 0
+    hw = d2.shape[-1]
+    arange = torch.arange(hw, device=d2.device)
+    order = torch.sort(torch.where(selected, arange, hw + arange), -1)[0]
+    slots = int(selected.sum(-1).max())
+    idx = order[..., :slots] % hw
+    w = torch.gather(w, -1, idx)
+    feat = flat_feat.to(torch.bfloat16).float()
+    rows = torch.arange(d2.shape[0], device=d2.device)[:, None]
+    total = w[..., 0]
+    out = w[..., 0, None] * feat[rows, idx[..., 0]]
+    for s in range(1, slots):
+        total = total + w[..., s]
+        out = out + w[..., s, None] * feat[rows, idx[..., s]]
+    return (out / (total[..., None] + 1e-8)).to(torch.bfloat16)
 
 
-def sample_pixel_features_fused(pcl_xyz, img_xyz, flat_feat, k: int = 4):
+def sample_pixel_features_fused(pcl_xyz, img_xyz, flat_feat, k: int = 4,
+                                mode: str = 'highest'):
     """The K2 entry point. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (and raise on anything it does not take)."""
+    tensors launch the mode's kernel (and raise on anything it does not
+    take). 'default' takes bfloat16 features."""
     if pcl_xyz.device.type == 'cpu':
-        return sample_pixel_features_plain(pcl_xyz, img_xyz, flat_feat, k)
+        return sample_pixel_features_plain(pcl_xyz, img_xyz, flat_feat, k,
+                                           mode)
     if pcl_xyz.device.type != 'cuda':
         raise ValueError(f'unsupported device {pcl_xyz.device}')
+    if mode not in ('highest', 'default'):
+        raise ValueError(f'unknown mode {mode!r}')
     b, n, _ = pcl_xyz.shape
     hw, c = flat_feat.shape[1], flat_feat.shape[2]
     dev = pcl_xyz.device
+    serving = mode == 'default'
     check_tensor(pcl_xyz, 'pcl_xyz', (b, n, 3), dev)
     check_tensor(img_xyz, 'img_xyz', (b, hw, 3), dev)
-    check_tensor(flat_feat, 'flat_feat', (b, hw, c), dev)
+    check_tensor(flat_feat, 'flat_feat', (b, hw, c), dev,
+                 torch.bfloat16 if serving else torch.float32)
     if k != K_NEAREST:
         raise ValueError(f'the kernel selects k={K_NEAREST}, got k={k}')
     if not K_NEAREST <= hw <= MAX_HW:
         raise ValueError(f'HW={hw} outside [{K_NEAREST}, {MAX_HW}]')
-    out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+    if serving and c > MAX_SERVING_C:
+        raise ValueError(f'C={c} exceeds {MAX_SERVING_C}')
+    out = torch.empty((b, n, c), dtype=flat_feat.dtype, device=dev)
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        KERNEL.launch(pcl_xyz.data_ptr(), img_xyz.data_ptr(),
-                      flat_feat.data_ptr(), out.data_ptr(), b, n, hw, c,
-                      stream)
+        (SERVING_KERNEL if serving else KERNEL).launch(
+            pcl_xyz.data_ptr(), img_xyz.data_ptr(), flat_feat.data_ptr(),
+            out.data_ptr(), b, n, hw, c, stream)
     return out

@@ -5,8 +5,10 @@ Parameters carry the reference's names (per-radius 1x1 Conv2d + BatchNorm2d
 stacks, a Conv1d + BatchNorm1d fusion). In eval every BatchNorm folds into
 the conv before it, and the whole computation is one call of
 kernels/desa_dense.py:desa_dense (K1), or of its plain version when the
-caller asks for it. The train path (gather form with live BatchNorm
-statistics) is not ported yet.
+caller asks for it. As in the JAX module, a float32 DESA runs K1's exact
+'highest' mode and any other compute dtype its 'default' serving mode, on
+features cast to that dtype; the result comes back in it. The train path
+(gather form with live BatchNorm statistics) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from keypointfusion_torch.kernels.desa_dense import (
 from keypointfusion_torch.models.resnet import init_conv
 
 
-def _fold(conv: nn.Module, bn: nn.Module):
+def fold_conv_bn(conv: nn.Module, bn: nn.Module):
     """conv [out, in, 1(, 1)] + eval BN -> folded Dense (kernel [in, out],
     bias [out])."""
     kernel = conv.weight.reshape(conv.weight.shape[0], -1).t()
@@ -31,6 +33,8 @@ def _fold(conv: nn.Module, bn: nn.Module):
 
 
 class DESA(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, in_channel: int = 128, mlp: Sequence[int] = (128, 128),
                  num_samples: Sequence[int] = (64, 64, 64),
                  radius: Sequence[float] = (0.1, 0.2, 0.4)):
@@ -61,13 +65,13 @@ class DESA(nn.Module):
 
     def folded_weights(self) -> DesaWeights:
         """Every BatchNorm folded into its conv, stacked over the radii."""
-        wl, bl = zip(*(_fold(c, b) for c, b in
+        wl, bl = zip(*(fold_conv_bn(c, b) for c, b in
                        zip(self.conv_l0_blocks, self.bn_l0_blocks)))
-        wf, bf = zip(*(_fold(c, b) for c, b in
+        wf, bf = zip(*(fold_conv_bn(c, b) for c, b in
                        zip(self.conv_f0_blocks, self.bn_f0_blocks)))
-        w2, b2 = zip(*(_fold(c[0], b[0]) for c, b in
+        w2, b2 = zip(*(fold_conv_bn(c[0], b[0]) for c, b in
                        zip(self.conv_blocks, self.bn_blocks)))
-        wfu, bfu = _fold(self.fusion[0], self.fusion[1])
+        wfu, bfu = fold_conv_bn(self.fusion[0], self.fusion[1])
         stack = lambda ts: torch.stack(ts).contiguous()
         return DesaWeights(
             wf=stack(wf), wl=stack(wl),
@@ -81,7 +85,9 @@ class DESA(nn.Module):
         version on any device."""
         if self.training:
             raise NotImplementedError('the DESA train path is not ported')
+        dt = self.compute_dtype
         fn = desa_dense if use_kernel else desa_dense_plain
-        return fn(pcl_feat.contiguous(), node_feat.contiguous(),
-                  pcl_xyz.contiguous(), node_xyz.contiguous(),
-                  self.folded_weights(), self.radius, self.num_samples)
+        return fn(pcl_feat.to(dt).contiguous(), node_feat.to(dt).contiguous(),
+                  pcl_xyz.float().contiguous(), node_xyz.float().contiguous(),
+                  self.folded_weights(), self.radius, self.num_samples,
+                  'highest' if dt == torch.float32 else 'default').to(dt)

@@ -5,6 +5,11 @@ The spatial gate is strictly positive, so relu(gate * feat) ==
 gate * relu(feat) and the per-joint spatial pooling
     img_feat_j[b,j,c] = FC_hw(relu(gate[b,j,hw] * feat[b,hw,c]))
 is one product (gate * w_fc) @ relu(feat), with no [B,J,C,H,W] tensor.
+
+In a bfloat16 block the values change dtype where the JAX block's do: the
+sampled features and every Dense are in the compute dtype, the gate is
+float32 (its float32 parameters promote it), so the pooled img_feat_j is
+float32 and the cross decoder's query with it.
 """
 
 from __future__ import annotations
@@ -12,12 +17,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from keypointfusion_torch.geometry.camera import CropFrame
 from keypointfusion_torch.geometry.pcl import img_to_anchor_dis
 from keypointfusion_torch.models.desa import DESA
+from keypointfusion_torch.models.layers import cast_param, linear
 from keypointfusion_torch.models.norm import TorchBatchNorm
 from keypointfusion_torch.models.resnet import init_conv
 from keypointfusion_torch.models.transformer import (
@@ -31,6 +36,7 @@ from keypointfusion_torch.ops.codecs import (
 class EmbedBN(nn.Sequential):
     """The reference's Conv1d(k=1) + BatchNorm1d, on channels-last tokens
     [B,N,Cin] -> [B,N,dim] (BN over batch x tokens)."""
+    compute_dtype = torch.float32
 
     def __init__(self, in_dim: int, dim: int):
         conv = nn.Conv1d(in_dim, dim, 1)
@@ -40,10 +46,15 @@ class EmbedBN(nn.Sequential):
 
     def forward(self, x):
         conv, bn = self[0], self[1]
-        return bn(F.linear(x, conv.weight[..., 0], conv.bias))
+        dt = self.compute_dtype
+        weight = cast_param(self, 'weight', conv.weight[..., 0], dt)
+        return bn(linear(x, weight, cast_param(self, 'bias', conv.bias, dt),
+                         dt))
 
 
 class FusionBlock(nn.Module):
+    compute_dtype = torch.float32
+
     def __init__(self, joint_num: int = 21, dim: int = 128,
                  feature_size: int = 32):
         super().__init__()
@@ -77,10 +88,11 @@ class FusionBlock(nn.Module):
         Returns (refined_3d [B,J,3], refined_2d [B,J,3], img_feat_j
         [B,J,C], spatial_weight [B,H,W,J])."""
         b, h, w, c = img_feat.shape
+        dt = self.compute_dtype
         pcl_offset_xyz = pcl_joint_to_offset(joint_xyz, pcl, kernel)
-        pcl_feat = sampled[..., :c]
-        pcl_feat_rgb = sampled[..., c:2 * c]
-        pcl_weight = sampled[..., 2 * c:]
+        pcl_feat = sampled[..., :c].to(dt)
+        pcl_feat_rgb = sampled[..., c:2 * c].to(dt)
+        pcl_weight = sampled[..., 2 * c:].to(dt)
 
         pose = torch.cat([pcl_weight, pcl_offset_xyz], dim=-1)
         pcl_feat = torch.relu(self.pcl_feat_emb(pcl_feat)
@@ -99,15 +111,18 @@ class FusionBlock(nn.Module):
 
         hm = joint_to_heatmap(refined_3d[..., :2], kernel, h, sigma=1.0)
         gam = img_to_anchor_dis(refined_3d, img_down, frame)  # [B,H,W,J]
-        spatial_weight = torch.sigmoid(F.linear(
+        att = self.atten_spatial
+        spatial_weight = torch.sigmoid(linear(
             torch.cat([img_feat_rgb, hm], dim=-1),
-            self.atten_spatial.weight[:, :, 0, 0], self.atten_spatial.bias))
+            cast_param(self, 'att_weight', att.weight[:, :, 0, 0], dt),
+            cast_param(self, 'att_bias', att.bias, dt), dt))
         weight_dis = torch.sigmoid(self.weight_dis)
         gate = weight_dis * gam + (1.0 - weight_dis) * spatial_weight
         fc = self.fc_spatial2joint_feature
         gated_w = (gate.reshape(b, h * w, -1)
                    * fc.weight.t()).transpose(1, 2)           # [B,J,HW]
-        relu_feat = torch.relu(img_feat_rgb).reshape(b, h * w, c)
+        relu_feat = torch.relu(img_feat_rgb).reshape(b, h * w, c).to(
+            gated_w.dtype)
         img_feat_j = gated_w @ relu_feat + fc.bias
         if updated_2d_feature is not None:
             img_feat_j = torch.relu((img_feat_j + updated_2d_feature) / 2.0)

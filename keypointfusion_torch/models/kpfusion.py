@@ -6,13 +6,19 @@ Outputs follow the reference's `result` list,
 reference config's stage_type = (1,1,2,3,2,3), plus one spatial-weight map
 per block.
 
+Precision policy (the JAX module's): `dtype` is the fusion head's compute
+dtype and `backbone_dtype` (None: `dtype`) the backbones'; parameters and
+BatchNorm statistics stay float32 (models/layers.py). A float32 head runs
+K1 and K2 in their exact 'highest' modes, any other dtype in their
+'default' serving modes (bfloat16 features and sampled maps).
+
 `use_kernels` is the meaning of the JAX flags use_pallas_sampler and
 use_pallas_desa together: True sends the point->pixel sampling through
 kernels/pixel_sampler.py (K2, once per forward) and each block's DESA
 through kernels/desa_dense.py (K1, once per block). On CUDA tensors those
 launch the CUDA kernels; on CPU tensors they run their plain versions.
-False runs the plain PyTorch path on any device; that is how chip_smoke.py
-compares the two on the card.
+False runs the kernels' plain versions on any device; that is how
+chip_smoke.py compares the two on the card.
 """
 
 from __future__ import annotations
@@ -25,12 +31,11 @@ from torch import nn
 from keypointfusion_torch.config import Config
 from keypointfusion_torch.geometry.camera import CropFrame, uvd_nl_to_xyz_nl
 from keypointfusion_torch.geometry.grid import img_uvd_points
-from keypointfusion_torch.geometry.pcl import (
-    img_to_pcl_index, sample_pixel_features,
+from keypointfusion_torch.kernels.pixel_sampler import (
+    sample_pixel_features_fused, sample_pixel_features_plain,
 )
-from keypointfusion_torch.kernels.pixel_sampler import \
-    sample_pixel_features_fused
 from keypointfusion_torch.models.fusion_block import FusionBlock
+from keypointfusion_torch.models.layers import set_compute_dtype
 from keypointfusion_torch.models.unet import ResNetUNet
 from keypointfusion_torch.ops.codecs import offset_to_joint_weight
 from keypointfusion_torch.ops.resize import resize_nearest_torch
@@ -40,7 +45,9 @@ from keypointfusion_torch.utils.device import resolve_device
 class KPFusion(nn.Module):
     def __init__(self, net: str = 'KPFusion-resnet-18', joint_num: int = 21,
                  num_stages: int = 2, dim: int = 128,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 backbone_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if 'resnet' not in net:
             raise NotImplementedError(f'{net}: only ResNet backbones are '
@@ -49,12 +56,17 @@ class KPFusion(nn.Module):
         j = joint_num
         self.joint_num = j
         self.use_kernels = use_kernels
+        self.dtype = dtype
+        self.backbone_dtype = backbone_dtype or dtype
         out_dims = (3 * j, j, j)
         self.backbone_d = ResNetUNet(1, depth, dim, out_dims)
         self.backbone_rgb = ResNetUNet(3, depth, dim, out_dims)
+        set_compute_dtype(self.backbone_d, self.backbone_dtype)
+        set_compute_dtype(self.backbone_rgb, self.backbone_dtype)
         self.num_stages = num_stages
         for i in range(num_stages):
-            setattr(self, f'block{i + 1}', FusionBlock(j, dim))
+            setattr(self, f'block{i + 1}',
+                    set_compute_dtype(FusionBlock(j, dim), dtype))
 
     def forward(self, rgb, depth, pcl, frame: CropFrame,
                 kernel: float = 0.8):
@@ -64,8 +76,11 @@ class KPFusion(nn.Module):
             raise NotImplementedError('KPFusion train mode is not ported; '
                                       'call .eval()')
         j = self.joint_num
-        img_offset, img_feat = self.backbone_d(depth)
-        img_offset_rgb, img_feat_rgb = self.backbone_rgb(rgb)
+        dt, bb = self.dtype, self.backbone_dtype
+        img_offset, img_feat = (
+            t.to(dt) for t in self.backbone_d(depth.to(bb)))
+        img_offset_rgb, img_feat_rgb = (
+            t.to(dt) for t in self.backbone_rgb(rgb.to(bb)))
         b, h = img_feat.shape[0], img_feat.shape[1]
 
         joint_uvd = offset_to_joint_weight(img_offset, depth, kernel)
@@ -77,14 +92,12 @@ class KPFusion(nn.Module):
         # between stages)
         maps = torch.cat([img_feat, img_feat_rgb, weight_map], dim=-1)
         flat = maps.reshape(b, h * h, -1)
-        if self.use_kernels:
-            img_xyz = uvd_nl_to_xyz_nl(img_uvd_points(img_down), frame)
-            sampled = sample_pixel_features_fused(pcl.contiguous(), img_xyz,
-                                                  flat, k=4)
-        else:
-            closeness, index = img_to_pcl_index(pcl, img_down, frame,
-                                                select_num=4)
-            sampled = sample_pixel_features(flat, closeness, index)
+        img_xyz = uvd_nl_to_xyz_nl(img_uvd_points(img_down), frame)
+        sampler = sample_pixel_features_fused if self.use_kernels \
+            else sample_pixel_features_plain
+        sampled = sampler(pcl.contiguous(), img_xyz, flat, k=4,
+                          mode='highest' if dt == torch.float32
+                          else 'default')
 
         results = [img_offset, img_offset_rgb]
         spatial_weights = []
@@ -101,12 +114,17 @@ class KPFusion(nn.Module):
 
 
 def build_kpfusion(cfg: Config = Config(), device=None, seed: int = 0,
-                   use_kernels: bool = True) -> KPFusion:
+                   use_kernels: bool = True,
+                   dtype: Optional[torch.dtype] = None) -> KPFusion:
     """The model factory: a KPFusion in eval mode with weights drawn from
     `seed` (the process's global RNG is left as it was), on the CUDA card
-    unless `device` names another."""
+    unless `device` names another. `dtype` sets the whole model's compute
+    dtype; None takes cfg.compute_dtype."""
     device = resolve_device(device)
+    if dtype is None:
+        dtype = getattr(torch, cfg.compute_dtype)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = KPFusion(cfg.net, cfg.joint_num, use_kernels=use_kernels)
+        model = KPFusion(cfg.net, cfg.joint_num, use_kernels=use_kernels,
+                         dtype=dtype)
     return model.eval().to(device)

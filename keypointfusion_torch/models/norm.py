@@ -1,20 +1,34 @@
-"""BatchNorm over the channel (last) axis of a channels-last tensor.
+"""BatchNorm with the JAX package's precision policy.
 
 The JAX package's TorchBatchNorm (keypointfusion_tpu/models/norm.py)
 re-implements torch's BatchNorm semantics in flax; here torch's own
 BatchNorm is the implementation. In eval it normalizes with the running
-statistics and eps 1e-5. The state_dict names are BatchNorm1d's, as in the
-reference's Conv1d + BatchNorm1d embeddings.
+statistics and eps 1e-5, in float32 whatever the input's dtype, and
+returns the layer's compute dtype (models/layers.py): torch's batch_norm
+takes a bfloat16 input with float32 parameters, computes in float32 and
+rounds once, as the JAX layer does, without a cast pass on either side.
+Train mode is torch's own (the tests set running statistics with it).
 """
 
 import torch
 from torch import nn
 
 
-class TorchBatchNorm(nn.BatchNorm1d):
-    """nn.BatchNorm1d applied to x [..., C]: statistics over every axis
-    but the last."""
+class BatchNorm2d(nn.BatchNorm2d):
+    """NCHW BatchNorm."""
+    compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[-1]
-        return super().forward(x.reshape(-1, c)).reshape(x.shape)
+        return super().forward(x.to(self.compute_dtype))
+
+
+class TorchBatchNorm(nn.BatchNorm1d):
+    """nn.BatchNorm1d applied to x [..., C]: statistics over every axis
+    but the last. The state_dict names are BatchNorm1d's, as in the
+    reference's Conv1d + BatchNorm1d embeddings."""
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = x.shape
+        x = x.reshape(-1, shape[-1]).to(self.compute_dtype)
+        return super().forward(x).reshape(shape)

@@ -1,12 +1,16 @@
 """ResNet encoder emitting all five stage maps (c0..c4), NCHW.
 
 Port of keypointfusion_tpu/models/resnet.py at depth 18 (BasicBlock). The
-module and parameter names are torchvision's, as the reference's.
+module and parameter names are torchvision's, as the reference's. Convs
+and BatchNorms follow the compute dtype (models/layers.py).
 """
 
 from __future__ import annotations
 
 from torch import nn
+
+from keypointfusion_torch.models.layers import Conv2d
+from keypointfusion_torch.models.norm import BatchNorm2d
 
 STAGES = {18: (2, 2, 2, 2)}
 
@@ -21,16 +25,16 @@ def init_conv(conv: nn.Conv2d) -> None:
 class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
         self.relu = nn.ReLU()
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, stride, bias=False),
-                nn.BatchNorm2d(planes))
+                Conv2d(inplanes, planes, 1, stride, bias=False),
+                BatchNorm2d(planes))
 
     def forward(self, x):
         y = self.relu(self.bn1(self.conv1(x)))
@@ -47,8 +51,8 @@ class ResNet(nn.Module):
         if depth not in STAGES:
             raise NotImplementedError(
                 f'resnet-{depth} (Bottleneck) is not ported yet')
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64

@@ -4,6 +4,9 @@ decoder (port of keypointfusion_tpu/models/transformer.py).
 Module names follow the reference (HuggingFace BERT layers for the
 encoder; the decoder's packed `multihead_attn.in_proj_weight`), so its
 state_dict loads. Attention is written out: 21-token sequences, 4 heads.
+Dense layers, LayerNorms, embeddings and the attention follow the compute
+dtype as flax's nn.Dense, nn.LayerNorm, nn.Embed and
+nn.MultiHeadDotProductAttention do (models/layers.py).
 """
 
 from __future__ import annotations
@@ -14,22 +17,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from keypointfusion_torch.models.layers import (
+    LayerNorm, Linear, cast_param, linear,
+)
+
 
 def attention(q, k, v, heads: int):
     """Multi-head dot-product attention over projected q [B,Lq,C],
-    k/v [B,Lk,C]: the query is scaled by 1/sqrt(C/heads) before the
-    product, as flax does."""
+    k/v [B,Lk,C], in their dtype: the query is divided by sqrt(C/heads)
+    rounded to that dtype before the product, as flax does."""
     b, lq, c = q.shape
     lk = k.shape[1]
     d = c // heads
-    q = q.reshape(b, lq, heads, d).transpose(1, 2) / math.sqrt(d)
+    scale = float(torch.tensor(math.sqrt(d), dtype=q.dtype))
+    q = q.reshape(b, lq, heads, d).transpose(1, 2) / scale
     k = k.reshape(b, lk, heads, d).transpose(1, 2)
     v = v.reshape(b, lk, heads, d).transpose(1, 2)
     w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
     return (w @ v).transpose(1, 2).reshape(b, lq, c)
 
 
-def _normal_linear(m: nn.Linear, std: float) -> nn.Linear:
+def _normal_linear(m: Linear, std: float) -> Linear:
     nn.init.normal_(m.weight, std=std)
     nn.init.zeros_(m.bias)
     return m
@@ -40,8 +48,8 @@ class _DenseLN(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
-        self.dense = _normal_linear(nn.Linear(in_dim, out_dim), 0.02)
-        self.LayerNorm = nn.LayerNorm(out_dim, eps=1e-12)
+        self.dense = _normal_linear(Linear(in_dim, out_dim), 0.02)
+        self.LayerNorm = LayerNorm(out_dim, eps=1e-12)
 
 
 class PostLNLayer(nn.Module):
@@ -56,11 +64,11 @@ class PostLNLayer(nn.Module):
         self.attention.self = nn.Module()
         for name in ('query', 'key', 'value'):
             setattr(self.attention.self, name,
-                    _normal_linear(nn.Linear(hidden, hidden), 0.02))
+                    _normal_linear(Linear(hidden, hidden), 0.02))
         self.attention.output = _DenseLN(hidden, hidden)
         self.intermediate = nn.Module()
         self.intermediate.dense = _normal_linear(
-            nn.Linear(hidden, intermediate), 0.02)
+            Linear(hidden, intermediate), 0.02)
         self.output = _DenseLN(intermediate, hidden)
 
     def forward(self, x):
@@ -76,21 +84,23 @@ class PostLNLayer(nn.Module):
 
 class KeypointEncoder(nn.Module):
     """Learned positions + linear feature embedding -> post-LN stack."""
+    compute_dtype = torch.float32
 
     def __init__(self, hidden: int = 128, heads: int = 4, layers: int = 4,
                  intermediate: int = 16, img_dim: int = 128):
         super().__init__()
         self.position_embeddings = nn.Embedding(512, hidden)
         nn.init.normal_(self.position_embeddings.weight, std=0.02)
-        self.img_embedding = _normal_linear(nn.Linear(img_dim, hidden), 0.02)
+        self.img_embedding = _normal_linear(Linear(img_dim, hidden), 0.02)
         self.encoder = nn.Module()
         self.encoder.layer = nn.ModuleList(
             PostLNLayer(hidden, heads, intermediate) for _ in range(layers))
 
     def forward(self, img_feats):
         seq = img_feats.shape[1]
-        x = self.img_embedding(img_feats) \
-            + self.position_embeddings.weight[None, :seq]
+        pos = self.position_embeddings.weight[None, :seq]
+        x = self.img_embedding(img_feats) + cast_param(
+            self, 'pos', pos, self.compute_dtype)
         for layer in self.encoder.layer:
             x = layer(x)
         return x
@@ -104,8 +114,8 @@ class KPInteraction(nn.Module):
                  out_dim: int = 3):
         super().__init__()
         self.bert = KeypointEncoder(hidden=hidden, img_dim=img_dim)
-        self.cls_head = _normal_linear(nn.Linear(hidden, out_dim), 0.02)
-        self.residual = _normal_linear(nn.Linear(img_dim, out_dim), 0.02)
+        self.cls_head = _normal_linear(Linear(hidden, out_dim), 0.02)
+        self.residual = _normal_linear(Linear(img_dim, out_dim), 0.02)
 
     def forward(self, img_feats):
         seq = self.bert(img_feats)
@@ -115,28 +125,33 @@ class KPInteraction(nn.Module):
 class PackedAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed in_proj, out_proj)
     with the attention written out."""
+    compute_dtype = torch.float32
 
     def __init__(self, hidden: int, heads: int):
         super().__init__()
         self.heads = heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * hidden, hidden))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden))
-        self.out_proj = nn.Linear(hidden, hidden)
+        self.out_proj = Linear(hidden, hidden)
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.xavier_uniform_(self.out_proj.weight)
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, q, k, v):
-        wq, wk, wv = self.in_proj_weight.chunk(3)
-        bq, bk, bv = self.in_proj_bias.chunk(3)
-        a = attention(F.linear(q, wq, bq), F.linear(k, wk, bk),
-                      F.linear(v, wv, bv), self.heads)
+        dt = self.compute_dtype
+        wq, wk, wv = (cast_param(self, f'w{i}', w, dt) for i, w in
+                      enumerate(self.in_proj_weight.chunk(3)))
+        bq, bk, bv = (cast_param(self, f'b{i}', b, dt) for i, b in
+                      enumerate(self.in_proj_bias.chunk(3)))
+        a = attention(linear(q, wq, bq, dt), linear(k, wk, bk, dt),
+                      linear(v, wv, bv, dt), self.heads)
         return self.out_proj(a)
 
 
 class CrossDecoderLayer(nn.Module):
     """Cross-only decoder layer: learned query/key positions added to q, k
     AND v, post-LN (flax's default eps 1e-6), ReLU FFN. Eval only."""
+    compute_dtype = torch.float32
 
     def __init__(self, hidden: int = 128, heads: int = 4, ffn: int = 128,
                  joint_num: int = 21):
@@ -144,10 +159,10 @@ class CrossDecoderLayer(nn.Module):
         self.self_posembed = nn.Embedding(joint_num, hidden)
         self.cross_posembed = nn.Embedding(joint_num, hidden)
         self.multihead_attn = PackedAttention(hidden, heads)
-        self.norm2 = nn.LayerNorm(hidden, eps=1e-6)
-        self.norm3 = nn.LayerNorm(hidden, eps=1e-6)
-        self.linear1 = nn.Linear(hidden, ffn)
-        self.linear2 = nn.Linear(ffn, hidden)
+        self.norm2 = LayerNorm(hidden, eps=1e-6)
+        self.norm3 = LayerNorm(hidden, eps=1e-6)
+        self.linear1 = Linear(hidden, ffn)
+        self.linear2 = Linear(ffn, hidden)
         for lin in (self.linear1, self.linear2):
             nn.init.xavier_uniform_(lin.weight)
             nn.init.zeros_(lin.bias)
@@ -156,8 +171,11 @@ class CrossDecoderLayer(nn.Module):
         if self.training:
             raise NotImplementedError('train mode (dropout) is not ported')
         j = query.shape[1]
-        q = query + self.self_posembed.weight[None, :j]
-        kv = key + self.cross_posembed.weight[None, :j]
+        dt = self.compute_dtype
+        q = query + cast_param(self, 'self_pos',
+                               self.self_posembed.weight[None, :j], dt)
+        kv = key + cast_param(self, 'cross_pos',
+                              self.cross_posembed.weight[None, :j], dt)
         x = self.norm2(query + self.multihead_attn(q, kv, kv))
         h = self.linear2(torch.relu(self.linear1(x)))
         return self.norm3(x + h)

@@ -13,6 +13,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from keypointfusion_torch.models.layers import Conv2d
+from keypointfusion_torch.models.norm import BatchNorm2d
 from keypointfusion_torch.models.resnet import ResNet, init_conv
 from keypointfusion_torch.ops.resize import upsample_bilinear_x2
 
@@ -22,7 +24,7 @@ class _Conv(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, kernel: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_dim, out_dim, kernel, 1, (kernel - 1) // 2,
+        self.conv = Conv2d(in_dim, out_dim, kernel, 1, (kernel - 1) // 2,
                               bias=True)
         init_conv(self.conv)
 
@@ -37,11 +39,11 @@ class Residual(nn.Module):
     def __init__(self, in_dim: int, out_dim: int):
         super().__init__()
         half = out_dim // 2
-        self.bn1 = nn.BatchNorm2d(in_dim)
+        self.bn1 = BatchNorm2d(in_dim)
         self.conv1 = _Conv(in_dim, half, 1)
-        self.bn2 = nn.BatchNorm2d(half)
+        self.bn2 = BatchNorm2d(half)
         self.conv2 = _Conv(half, half, 3)
-        self.bn3 = nn.BatchNorm2d(half)
+        self.bn3 = BatchNorm2d(half)
         self.conv3 = _Conv(half, out_dim, 1)
         self.skip_layer = _Conv(in_dim, out_dim, 1) \
             if in_dim != out_dim else None
@@ -73,7 +75,7 @@ class ResNetUNet(nn.Module):
         self.skip_layer2 = Residual(64, 64)
         self.fusion_layer2 = Residual(192, deconv_dim)
         self.finals = nn.ModuleList(
-            nn.Conv2d(deconv_dim, od, 1) for od in out_dims)
+            Conv2d(deconv_dim, od, 1) for od in out_dims)
         for conv in self.finals:
             nn.init.normal_(conv.weight, std=0.001)
             nn.init.zeros_(conv.bias)

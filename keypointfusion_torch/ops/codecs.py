@@ -42,7 +42,9 @@ def offset_to_joint_weight(offset_map, depth, kernel_size):
     dist = k - heatmap_masked * k
     wd = (normal_weight * dist * mask)[..., None]
     t_off = torch.sum(wd * offset_unit, dim=1)
-    t_coord = torch.einsum('bmj,bmc->bjc', normal_weight, coords)
+    # JAX promotes a bfloat16 map's weights to the float32 coordinates
+    t_coord = torch.einsum('bmj,bmc->bjc', normal_weight.to(coords.dtype),
+                           coords)
     return t_off + t_coord
 
 

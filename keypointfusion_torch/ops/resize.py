@@ -19,6 +19,10 @@ def resize_nearest_torch(x: torch.Tensor, out_hw) -> torch.Tensor:
 def upsample_bilinear_x2(x: torch.Tensor) -> torch.Tensor:
     """NCHW 2x bilinear upsample with half-pixel centers
     (align_corners=False), as the reference's nn.Upsample. NCHW because
-    only the backbones call it."""
-    return F.interpolate(x, scale_factor=2, mode='bilinear',
+    only the backbones call it. Two 1-D passes, rows then columns, each
+    rounded to x's dtype, as jax.image.resize contracts them (in bfloat16
+    this matches the JAX function bit for bit; one 2-D pass does not)."""
+    y = F.interpolate(x, scale_factor=(2, 1), mode='bilinear',
+                      align_corners=False)
+    return F.interpolate(y, scale_factor=(1, 2), mode='bilinear',
                          align_corners=False)

@@ -1,9 +1,10 @@
 """Batched streaming RGB-D inference engine (port of
-keypointfusion_tpu/serving.py:StreamingEngine, float32).
+keypointfusion_tpu/serving.py:StreamingEngine).
 
-Full frames stream in (uint16 depth in mm, uint8 RGB), preprocessing and
-the KPFusion forward run on the device, and one packed [B, 2*3J+9] float32
-array per batch comes back: world-mm joints | normalized uvd joints |
+Full frames stream in (uint16 depth in mm, uint8 RGB), preprocessing (in
+float32) and the KPFusion forward (bfloat16 by default, as the JAX
+engine's) run on the device, and one packed [B, 2*3J+9] float32 array per
+batch comes back: world-mm joints | normalized uvd joints |
 crop matrix M. On the card, host arrays are staged in pinned memory and
 copied with non_blocking copies, everything runs in order on the current
 stream, and `process_stream` keeps a few batches in flight so the host
@@ -30,20 +31,20 @@ class StreamingEngine:
 
     def __init__(self, cfg: Config = Config(),
                  state_dict: Optional[dict] = None, batch_size: int = 64,
-                 img_hw=(480, 640), dtype: torch.dtype = torch.float32,
+                 img_hw=(480, 640), dtype: torch.dtype = torch.bfloat16,
                  use_kernels: bool = True, device=None, seed: int = 0):
         """state_dict: the port's KPFusion weights (None draws them from
-        `seed`). use_kernels sends the model through the CUDA kernels
-        (see models/kpfusion.py). Runs on the CUDA card unless `device`
-        names another; without a card and without device='cpu' it
-        raises."""
-        if dtype != torch.float32:
-            raise NotImplementedError('only float32 serving is ported')
+        `seed`). dtype is the model's compute dtype: bfloat16 runs the
+        serving modes of the kernels, float32 their exact modes.
+        use_kernels sends the model through the CUDA kernels (see
+        models/kpfusion.py). Runs on the CUDA card unless `device` names
+        another; without a card and without device='cpu' it raises."""
         self.cfg = cfg
         self.batch_size = batch_size
         self.img_hw = tuple(img_hw)
         self.device = resolve_device(device)
-        self.model = build_kpfusion(cfg, self.device, seed, use_kernels)
+        self.model = build_kpfusion(cfg, self.device, seed, use_kernels,
+                                    dtype)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self._joint_num = cfg.joint_num
@@ -67,7 +68,8 @@ class StreamingEngine:
         joint_uvd = xyz_nl_to_uvd_nl(joint_xyz, frame)
         world = joint_xyz * frame.cube[:, None] / 2.0 + frame.center[:, None]
         b = world.shape[0]
-        return torch.cat([world.reshape(b, -1), joint_uvd.reshape(b, -1),
+        return torch.cat([world.reshape(b, -1).float(),
+                          joint_uvd.reshape(b, -1).float(),
                           frame.M.reshape(b, -1)], dim=-1)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 `jax_kpfusion_to_state_dict` turns JAX KPFusion variables
 ({'params', 'batch_stats'} as nested dicts of numpy arrays) into the
-port's state_dict. The port's parameters carry the reference torch names,
+port's state_dict, `jax_desa_to_state_dict` a DESA module's subtrees into
+the port's DESA state_dict. The port's parameters carry the reference torch names,
 the ones keypointfusion_tpu/utils/torch_convert.py:convert_kpfusion_checkpoint
 reads, and this function is that converter's exact inverse:
   * flax Conv kernels [kh,kw,I,O] -> torch Conv2d weights [O,I,kh,kw];
@@ -171,6 +172,7 @@ def _cross_decoder(sd: StateDict, pre: str, p: dict) -> None:
 
 
 def _desa(sd: StateDict, pre: str, p: dict, s: dict) -> None:
+    """The DESA subtree (params p, batch_stats s) under prefix `pre.`."""
     i = 0
     while f'conv_l0_{i}' in p:
         _dense(sd, f'{pre}.conv_l0_blocks.{i}', p[f'conv_l0_{i}'], 2)
@@ -186,6 +188,14 @@ def _desa(sd: StateDict, pre: str, p: dict, s: dict) -> None:
         i += 1
     _dense(sd, f'{pre}.fusion.0', p['fusion'], 1)
     _bn(sd, f'{pre}.fusion.1', p['fusion_bn'], s['fusion_bn'])
+
+
+def jax_desa_to_state_dict(params: dict, batch_stats: dict) -> StateDict:
+    """A JAX DESA module's {'params'} and {'batch_stats'} subtrees (numpy
+    leaves) -> the port's DESA state_dict."""
+    sd: StateDict = {}
+    _desa(sd, 'FA', params, batch_stats)
+    return {k[len('FA.'):]: v for k, v in sd.items()}
 
 
 def _fusion_block(sd: StateDict, pre: str, p: dict, s: dict) -> None:

@@ -2,10 +2,11 @@
 """Where a serving batch of the PyTorch port spends its time, on the card.
 
     python3 scripts/torch_serving_profile.py [--batch 64] [--requests 4]
+        [--dtype bfloat16|float32]
 
 Drives keypointfusion_torch's StreamingEngine as chip_smoke.py does
-(KPFusion-resnet-18, float32, random weights from a seed, bench.py-style
-480x640 frames) and reports:
+(KPFusion-resnet-18 in the engine's compute dtype, bfloat16 by default,
+random weights from a seed, bench.py-style 480x640 frames) and reports:
   * the stages of one warm request on the host clock, each ended by a
     synchronize: host staging and copies, device preprocessing, the two
     backbones, sampling and codecs, fusion block 1, fusion block 2, packing;
@@ -30,7 +31,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 KINDS = (('K1 desa_dense', ('desa_dense_kernel',)),
+         ('K1 desa_dense_serving', ('desa_dense_serving_kernel',)),
          ('K2 pixel_sampler', ('pixel_sampler_kernel',)),
+         ('K2 pixel_sampler_serving', ('pixel_sampler_serving_kernel',)),
          ('convolution', ('conv', 'cudnn', 'xmma', 'implicit', 'winograd')),
          ('matmul', ('gemm', 'cutlass', 'cublas')),
          ('copy', ('memcpy', 'memset')),
@@ -91,6 +94,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--batch', type=int, default=64)
     parser.add_argument('--requests', type=int, default=4)
+    parser.add_argument('--dtype', choices=('bfloat16', 'float32'),
+                        default='bfloat16')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('needs a CUDA device', file=sys.stderr)
@@ -99,7 +104,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     eng = StreamingEngine(Config(), batch_size=args.batch,
-                          img_hw=(480, 640), seed=0)
+                          img_hw=(480, 640), dtype=getattr(torch, args.dtype),
+                          seed=0)
     rng = np.random.RandomState(0)
     requests = [synthetic_frames(args.batch, rng=rng)
                 for _ in range(args.requests + 1)]
@@ -128,7 +134,8 @@ def main():
         text=True).stdout.strip().splitlines()[0]
     frames = args.requests * args.batch
     result = {
-        'card': card, 'batch': args.batch, 'requests': args.requests,
+        'card': card, 'dtype': args.dtype, 'batch': args.batch,
+        'requests': args.requests,
         'stages_ms_per_request': stages,
         'profiled_wall_ms': round(wall_ms, 3),
         'frames_per_s_profiled': round(frames / wall_ms * 1e3, 1),

@@ -141,7 +141,8 @@ def test_engine_pipeline_matches_jax(shared_weights):
                      ('depth', 'rgb', 'centers', 'cube', 'cam')], key))
     uniform = torch.from_numpy(np.array(jax.random.uniform(key, (2, 256))))
     eng = StreamingEngine(Config(point_num=256), state_dict=sd,
-                          batch_size=2, img_hw=(120, 160), device='cpu')
+                          batch_size=2, img_hw=(120, 160),
+                          dtype=torch.float32, device='cpu')
     with cpu_reference_convs():
         got = eng.pipeline(
             torch.from_numpy(frames['depth'].astype(np.int32)),
@@ -160,7 +161,8 @@ def test_streaming_engine_contract():
     """process_stream yields one result per batch, in submission order,
     with the shapes of the JAX engine and finite joints."""
     eng = StreamingEngine(Config(point_num=128), batch_size=2,
-                          img_hw=(120, 160), device='cpu')
+                          img_hw=(120, 160), dtype=torch.float32,
+                          device='cpu')
     batches = []
     for i in range(3):
         f = _full_frames(2, seed=i)
