@@ -17,8 +17,13 @@ describing each kernel, the card's name and power limit as nvidia-smi
 reports them, and last {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Without a CUDA device it exits 1 and prints no result.
 
-Times are CUDA-event times of back-to-back calls after a warm-up (L2 not
-flushed). A kernel's bound is the larger of the bytes it must move over
+Every kernel's `ms` is the CUDA-event time of back-to-back calls of its
+entry point after a warm-up (L2 not flushed). K1 'default''s phase line
+also gives the torch.profiler device time of its kernel alone and of its
+entry point (the joint term, then the kernel), the entry point's host
+time per call, and what ptxas and the CUDA runtime report (registers,
+spills, shared memory, blocks per SM).
+A kernel's bound is the larger of the bytes it must move over
 3.35 TB/s and its operations over the card's peak for their type: float32
 on the CUDA cores at 67 TFLOP/s, products of bfloat16 operands at 989
 TFLOP/s (the H100 SXM's published peaks). Float32 matmuls and
@@ -43,10 +48,15 @@ K1_TOL = 1e-4    # cuBLAS sums the 128/512-wide products in another order
 K3_TOL = 1e-4    # as K1
 K3_VS_K1 = (1e-3, 2e-3)   # rtol, atol: the JAX package's bound for K3 vs DESA
 # of the scale: sums in another order, then bfloat16 roundings of h1 and of
-# the fusion input; the 'highest' arithmetic on the same bfloat16 inputs
-# lies 2.8e-3 of the scale or more away (CPU, the card tests' inputs), and
-# the check below shows it lies outside at this shape too
+# the fusion input that fall the other way (4.1e-4 of the scale measured on
+# an H100). Plain versions that skip the rounding of h1 or of the fusion
+# input lie 2.0e-3 of the scale or more away at this shape, the 'highest'
+# arithmetic 4.3e-3 (CPU); check_serving_contract shows each lies outside
 K1_SERVING_TOL = 1e-3
+# of the scale, K1 'default''s joint term against float64 sums: float32
+# products lie 1.1e-7 of the scale away, TF32 products 3.4e-4 (CPU,
+# operands rounded to TF32), and the check shows the card's TF32 outside
+JOINT_TERM_TOL = 1e-5
 FORWARD_TOL = 1e-4   # of each output's scale (at least 1)
 SERVING_TOL = {'joint_xyz_mm': 1e-4 * 125.0, 'joint_uvd': 1e-4, 'M': 0.0}
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
@@ -73,10 +83,58 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters):
+    """Host time per call of fn, issued back to back without waiting for
+    the card (whose queue does not fill at these sizes): where it exceeds
+    the device time, cuda_ms reads it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e3
+
+
+def device_ms(fn, iters, name=''):
+    """Device time per call of fn, from torch.profiler over `iters` calls
+    after a warm-up: the kernels whose name holds `name` (every kernel when
+    it is empty). Unlike cuda_ms, no host time between launches counts."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.key)
+    if total <= 0:
+        raise AssertionError(f'the profiler saw no device time for {name!r}')
+    return total / iters / 1e3
+
+
 def bound_ms(nbytes, flops, bf16_flops=0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (flops / FP32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def joint_term_float64(node_feat, node_xyz, w, radius):
+    """K1 'default''s joint term b_j [B,J,R,C]
+    (kernels/desa_dense.py:serving_joint_term) from the folded weights,
+    with every sum and product in float64."""
+    import torch
+    f = node_feat.to(torch.bfloat16).double()
+    x = node_xyz.double()
+    return torch.stack([f @ w.wf[i].double()
+                        + (x @ w.wl[i].double()) * (1.0 / r)
+                        - w.b1[i].double()
+                        for i, r in enumerate(radius)], 2)
 
 
 def bf16_ulp(x):
@@ -220,13 +278,75 @@ def desa_inputs(dev, batch):
     return (pcl_feat, node_feat, pcl_xyz, node_xyz), module.eval().to(dev)
 
 
+def group_mismatches(pcl_xyz, node_xyz, radius, samples):
+    """(joint, radius) pairs whose group K1 'default' selects
+    (kernels/desa_dense.py:serving_groups, the kernel's own selection
+    code) differs from the plain ball query's, slot by slot."""
+    import torch
+    from keypointfusion_torch.kernels import desa_dense as k1
+    from keypointfusion_torch.ops.ball_query import ball_query_slots
+    from keypointfusion_torch.ops.pairwise import pairwise_sqdist
+
+    sel, nsel = k1.serving_groups(pcl_xyz, node_xyz, radius, samples)
+    d2 = pairwise_sqdist(node_xyz, torch.cat([pcl_xyz, node_xyz], 1))
+    bad = 0
+    for i, (r, s) in enumerate(zip(radius, samples)):
+        idx, valid = ball_query_slots(d2, r, s)
+        want = torch.full_like(sel[:, :, i], -1, dtype=torch.int64)
+        want[..., :s] = torch.where(valid, idx, -1)
+        same = (sel[:, :, i].long() == want).all(-1)
+        same &= nsel[:, :, i] == valid.sum(-1)
+        bad += int((~same).sum())
+    return bad
+
+
+def check_serving_contract(args, w, pack, want, radius, samples, tol):
+    """What the comparison of K1 'default' with its plain version cannot
+    see or must tell apart: the joint term, which the two share, against
+    float64 sums (and TF32 products must fail that limit); plain versions
+    that skip a rounding of the contract, or take the 'highest'
+    arithmetic, must each lie outside the kernel's limit."""
+    import torch
+    from keypointfusion_torch.kernels import desa_dense as k1
+
+    node_feat, node_xyz = args[1], args[3]
+    ref = joint_term_float64(node_feat, node_xyz, w, radius)
+    jt_tol = JOINT_TERM_TOL * max(1.0, float(ref.abs().max()))
+    jt = lambda: float((k1.serving_joint_term(node_feat, node_xyz, pack,
+                                              radius).double() - ref)
+                       .abs().max())
+    jt_err = jt()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    jt_tf32 = jt()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not jt_err <= jt_tol < jt_tf32:
+        raise AssertionError(f'joint term {jt_err} from float64 sums, with '
+                             f'TF32 {jt_tf32}; limit {jt_tol}')
+    controls = {
+        'highest': k1.desa_dense_plain(*args, w, radius, samples, 'highest'),
+        'h1_float32': k1._desa_serving_plain(*args, pack, radius, samples,
+                                             keep_float32=('h1',)),
+        'fusion_float32': k1._desa_serving_plain(
+            *args, pack, radius, samples, keep_float32=('fusion',))}
+    dist = {k: float((v - want).abs().max()) for k, v in controls.items()}
+    if not all(d > tol for d in dist.values()):
+        raise AssertionError(f'a control lies inside the K1 default limit '
+                             f'{tol}: {dist}')
+    return {'joint_term_vs_float64': jt_err, 'joint_term_tol': jt_tol,
+            'joint_term_tf32_vs_float64': jt_tf32,
+            'controls_vs_plain': json.dumps(dist)}
+
+
 def check_desa(dev, batch, mode):
     """K1 in one mode against its plain version. A second call with a first
     radius whose square rounds to 0 leaves every first ball empty, so each
     group falls back to the closest point (the joints sit on a 1/64 grid,
     where a joint's d2 to itself is exactly 0). 'default' takes the
-    features in bfloat16, and its limit must fail the 'highest' arithmetic
-    on the same inputs."""
+    features in bfloat16 and its weights packed once, as models/desa.py
+    keeps them; its groups are held slot by slot against the plain ball
+    query, and check_serving_contract runs. Its phase line also gives the
+    device time (torch.profiler) of the kernel alone and of the entry
+    point's call (the joint term, then the kernel)."""
     import torch
     from keypointfusion_torch.kernels import desa_dense as k1
     from keypointfusion_torch.ops.ball_query import ball_query_slots
@@ -239,31 +359,52 @@ def check_desa(dev, batch, mode):
     grid_xyz = torch.round(node_xyz * 64) / 64
     with torch.no_grad():
         w = module.folded_weights()
-    args = (pcl_feat, node_feat, pcl_xyz, node_xyz, w, module.radius,
-            module.num_samples, mode)
-    empty_radius = (1e-23,) + module.radius[1:]
-    empty_args = (pcl_feat, node_feat, pcl_xyz, grid_xyz, w, empty_radius,
-                  module.num_samples, mode)
-    got, want = k1.desa_dense(*args), k1.desa_dense_plain(*args)
-    got_e, want_e = k1.desa_dense(*empty_args), k1.desa_dense_plain(*empty_args)
+    kw = k1.serving_weights(w) if serving else w
+    radius, samples = module.radius, module.num_samples
+    empty_radius = (1e-23,) + radius[1:]
+    args = (pcl_feat, node_feat, pcl_xyz, node_xyz)
+    empty_args = (pcl_feat, node_feat, pcl_xyz, grid_xyz)
+    got = k1.desa_dense(*args, kw, radius, samples, mode)
+    want = k1.desa_dense_plain(*args, w, radius, samples, mode)
+    got_e = k1.desa_dense(*empty_args, kw, empty_radius, samples, mode)
+    want_e = k1.desa_dense_plain(*empty_args, w, empty_radius, samples, mode)
     torch.cuda.synchronize()
     err = max(float((got - want).abs().max()),
               float((got_e - want_e).abs().max()))
     scale = max(1.0, float(want.abs().max()), float(want_e.abs().max()))
     tol = K1_SERVING_TOL * scale if serving else K1_TOL
+    entry = lambda: k1.desa_dense(*args, kw, radius, samples, mode)
     fields = {}
     if serving:
-        # the other contract on the same inputs must fail the limit
-        other = k1.desa_dense_plain(*args[:-1], 'highest')
-        fields['highest_vs_default'] = float((other - want).abs().max())
-    ms = cuda_ms(lambda: k1.desa_dense(*args), 20)
-    plain_ms = cuda_ms(lambda: k1.desa_dense_plain(*args), 5, 1)
+        bad_groups = group_mismatches(pcl_xyz, node_xyz, radius, samples) \
+            + group_mismatches(pcl_xyz, grid_xyz, empty_radius, samples)
+        if bad_groups:
+            raise AssertionError(f'K1 default selects {bad_groups} groups '
+                                 f'unlike the plain ball query')
+        fields.update(check_serving_contract(args, w, kw, want, radius,
+                                             samples, tol))
+        tile, smem, blocks = k1.serving_kernel_info()
+        fields.update(
+            groups_unlike_plain=bad_groups,
+            joint_tile=tile, grid=json.dumps([-(-21 // tile), BATCH]),
+            smem_bytes=smem, blocks_per_sm=blocks,
+            kernel_device_ms=round(device_ms(
+                entry, 20, 'desa_dense_serving_kernel'), 5),
+            entry_device_ms=round(device_ms(entry, 20), 5),
+            entry_host_ms=round(host_ms(entry, 50), 4),
+            ptxas=json.dumps([ln.strip() for ln in
+                              k1.SERVING_KERNEL.build_log.splitlines()
+                              if 'entry function' in ln or 'registers' in ln
+                              or 'spill' in ln]))
+    ms = cuda_ms(entry, 20)
+    plain_ms = cuda_ms(
+        lambda: k1.desa_dense_plain(*args, w, radius, samples, mode), 5, 1)
 
     # the work these inputs need: every group slot in use; in 'default'
     # the first layer's A_m once per (element, point) some group holds
     d2 = pairwise_sqdist(node_xyz, torch.cat([pcl_xyz, node_xyz], 1))
     slots, points = 0, 0
-    for r, s in zip(module.radius, module.num_samples):
+    for r, s in zip(radius, samples):
         idx, valid = ball_query_slots(d2, r, s)
         slots += int(valid.sum())
         held = torch.zeros(d2.shape[0], d2.shape[2], dtype=torch.bool,
@@ -284,14 +425,10 @@ def check_desa(dev, batch, mode):
         bf16_ops = (points + slots) * 2 * c * c + fusion
         rest = points * 2 * 3 * c + BATCH * 21 * m * 9 \
             + BATCH * 21 * 3 * 2 * c * c
-        bound, bound_by = bound_ms(nbytes(pcl_feat, node_feat, pcl_xyz,
-                                          node_xyz, *w, got), rest,
-                                   bf16_ops)
+        bound, bound_by = bound_ms(nbytes(*args, *w, got), rest, bf16_ops)
         fields['held_points'] = points
     else:
-        bound, bound_by = bound_ms(nbytes(pcl_feat, node_feat, pcl_xyz,
-                                          node_xyz, *w, got),
-                                   mlp + fusion + rest)
+        bound, bound_by = bound_ms(nbytes(*args, *w, got), mlp + fusion + rest)
     log(f'kernel K1 {mode}', max_abs_err=err, tol=tol, slots=slots,
         **fields, lone_joint_ball=lone, in_ball_at_empty_radius=empty,
         ms=round(ms, 4), plain_ms=round(plain_ms, 4),
@@ -299,9 +436,6 @@ def check_desa(dev, batch, mode):
     if not err <= tol:
         raise AssertionError(f'K1 {mode} differs from its plain version '
                              f'by {err}')
-    if serving and not fields['highest_vs_default'] > tol:
-        raise AssertionError('the K1 default limit does not separate the '
-                             'two modes')
     if lone != 1 or empty != 0:
         raise AssertionError('the lone-joint or empty-ball case is not one')
     return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,

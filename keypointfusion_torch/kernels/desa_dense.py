@@ -28,12 +28,16 @@ bfloat16 values. The coordinate products stay float32: the JAX kernel
 writes them at Precision.DEFAULT with float32 operands, which XLA's CPU
 build runs in float32 (measured: DEFAULT and HIGHEST give the same error
 on a float32 product), while a TPU rounds them to bfloat16. Both modes
-return float32.
+return float32. The joint term b_j is a plain product outside the kernel
+(`serving_joint_term`), as JAX computes it outside its Pallas kernel
+(desa_dense_pallas.py:201-206); the kernel takes its bfloat16 weights
+ready packed (`serving_weights`), which models/desa.py keeps per module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
@@ -46,10 +50,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 4 + [_P] * 7 + [_F] * 6 + [_I] * 3 + [_P] + [_I] * 3 + [_P]
 KERNEL = CudaKernel('desa_dense', 'desa_dense.cu', 'kpf_desa_dense',
                     _ARGTYPES)
+# the same argument types: the joint term b_j and six packed weights take
+# the places of the seven folded weights
 SERVING_KERNEL = CudaKernel('desa_dense_serving', 'desa_dense_serving.cu',
                             'kpf_desa_dense_serving', _ARGTYPES)
-CHANNELS = 128           # the kernel's block is one thread per channel
-MAX_SAMPLES = 64         # group slots the kernel holds per radius
+# kpf_desa_dense_serving_groups (`serving_groups`): coordinates, r*r and
+# slots per radius, sel, nsel, sizes and stream
+GROUPS_ARGTYPES = [_P] * 2 + [_F] * 3 + [_I] * 3 + [_P] * 2 + [_I] * 3 + [_P]
+CHANNELS = 128           # the kernels' blocks are 128 threads
+MAX_SAMPLES = 64         # group slots the kernels hold per radius
 MAX_SUPPORT = 6144       # support points whose d2 fit in shared memory
 
 
@@ -67,6 +76,43 @@ class DesaWeights(NamedTuple):
     bfu: torch.Tensor
 
 
+class ServingWeights(NamedTuple):
+    """DesaWeights as the 'default' mode reads them, made and checked once
+    by `serving_weights`. For the kernel, each matrix rounded to bfloat16
+    and stored [out, in]: wf_t [R,C,C], w2_t [R,C,C], wfu_t [R+1,C,C]
+    (chunk q = wfu[qC:(q+1)C] transposed); wl [R,3,C], b2 [R,C] and bfu [C]
+    float32. For the joint term, float32 with the radii side by side
+    (columns iC..(i+1)C are radius i's): wf_cat [C,R*C], wl_cat [3,R*C],
+    and b1 [R,C]."""
+    wf_t: torch.Tensor
+    w2_t: torch.Tensor
+    wfu_t: torch.Tensor
+    wl: torch.Tensor
+    b2: torch.Tensor
+    bfu: torch.Tensor
+    wf_cat: torch.Tensor
+    wl_cat: torch.Tensor
+    b1: torch.Tensor
+
+
+def serving_weights(w: DesaWeights) -> ServingWeights:
+    """w packed for the 'default' mode (ServingWeights). Raises on weights
+    that are not contiguous float32 of one device and DesaWeights' shapes
+    for 3 radii."""
+    c = w.wf.shape[-1]
+    _check_weights(w, c, w.wf.device)
+    pack = lambda m: m.transpose(-1, -2).to(torch.bfloat16).contiguous()
+    side = lambda m: m.transpose(0, 1).reshape(m.shape[1], -1).contiguous()
+    out = ServingWeights(wf_t=pack(w.wf), w2_t=pack(w.w2),
+                         wfu_t=pack(w.wfu.reshape(-1, c, c)), wl=w.wl,
+                         b2=w.b2, bfu=w.bfu, wf_cat=side(w.wf),
+                         wl_cat=side(w.wl), b1=w.b1)
+    for name, t in zip(out._fields, out):
+        if t.data_ptr() % 16:       # the kernel copies 16 bytes at a time
+            raise ValueError(f'{name} must be 16-byte aligned')
+    return out
+
+
 def fold_bn(kernel, bias, gamma, beta, mean, var, eps: float = 1e-5):
     """Fold an eval BatchNorm into the Dense before it:
     BN(x W + b) == x W' + b'. kernel [in, out]; the rest [out]. A port of
@@ -81,10 +127,11 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 
 def desa_dense_plain(pcl_feat, node_feat, pcl_xyz, node_xyz,
-                     w: DesaWeights, radius: Sequence[float],
+                     w, radius: Sequence[float],
                      num_samples: Sequence[int], mode: str = 'highest'):
     """pcl_feat [B,N,C], node_feat [B,J,C], pcl_xyz [B,N,3],
-    node_xyz [B,J,3] -> [B,J,C] float32, in plain PyTorch (gather form)."""
+    node_xyz [B,J,3] -> [B,J,C] float32, in plain PyTorch (gather form).
+    w is a DesaWeights, or in 'default' also its ServingWeights."""
     if mode == 'default':
         return _desa_serving_plain(pcl_feat, node_feat, pcl_xyz, node_xyz, w,
                                    radius, num_samples)
@@ -109,46 +156,66 @@ def desa_dense_plain(pcl_feat, node_feat, pcl_xyz, node_xyz,
     return torch.relu(fused @ w.wfu + w.bfu)
 
 
-def _desa_serving_plain(pcl_feat, node_feat, pcl_xyz, node_xyz,
-                        w: DesaWeights, radius, num_samples):
-    """The 'default' mode (module docstring), in plain PyTorch."""
+def serving_joint_term(node_feat, node_xyz, pack: ServingWeights,
+                       radius: Sequence[float]) -> torch.Tensor:
+    """b_j = bf16(f_j) Wf_i + (x_j Wl_i) * (1/r_i) - b1_i for every joint
+    and radius: [B,J,R,C] float32, float32 weights and products, one
+    product per operand over all radii (JAX's b_i,
+    desa_dense_pallas.py:202-206, with its two biases summed in b1)."""
+    r, c = pack.b1.shape
+    f = _bf16(node_feat) @ pack.wf_cat
+    x = node_xyz.float() @ pack.wl_cat
+    shape = f.shape[:-1] + (r, c)
+    inv_r = _inv_radii(tuple(radius), f.device)
+    return f.view(shape) + x.view(shape) * inv_r[:, None] - pack.b1
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_radii(radius: tuple, device: torch.device) -> torch.Tensor:
+    """float32(1/r) per radius on `device`, made once: a copy to the card
+    on every call would wait for the stream. A normal tensor even when
+    first asked for under inference_mode."""
+    with torch.inference_mode(False):
+        return torch.tensor([1.0 / r for r in radius], device=device)
+
+
+def _desa_serving_plain(pcl_feat, node_feat, pcl_xyz, node_xyz, w,
+                        radius, num_samples, keep_float32=()):
+    """The 'default' mode (module docstring), in plain PyTorch; w is a
+    DesaWeights or its ServingWeights. `keep_float32` names roundings of
+    the contract to leave out, 'h1' or 'fusion' (the fusion input): a
+    control that a check of the kernel must tell apart."""
+    pack = w if isinstance(w, ServingWeights) else serving_weights(w)
+    round_h1 = _bf16 if 'h1' not in keep_float32 else lambda t: t
+    round_cat = _bf16 if 'fusion' not in keep_float32 else lambda t: t
     b = node_feat.shape[0]
     node_xyz = node_xyz.float()
     sup_xyz = torch.cat([pcl_xyz.float(), node_xyz], dim=1)
     node_f = _bf16(node_feat)
     sup_feat = torch.cat([_bf16(pcl_feat), node_f], dim=1)
     d2 = pairwise_sqdist(node_xyz, sup_xyz)                  # [B,J,M]
+    b_j = serving_joint_term(node_feat, node_xyz, pack, radius)  # [B,J,R,C]
     rows = torch.arange(b, device=d2.device)[:, None, None]
     outs = []
     for i, (r, s) in enumerate(zip(radius, num_samples)):
         idx, valid = ball_query_slots(d2, r, s)              # [B,J,S]
         inv_r = 1.0 / r
-        a = sup_feat @ _bf16(w.wf[i]) + (sup_xyz @ w.wl[i]) * inv_r
-        b_j = node_f @ w.wf[i] + (node_xyz @ w.wl[i]) * inv_r - w.b1[i]
-        h1 = torch.relu(a[rows, idx] - b_j[:, :, None, :])
-        h2 = torch.relu(_bf16(h1) @ _bf16(w.w2[i]) + w.b2[i])
+        a = sup_feat @ pack.wf_t[i].float().t() \
+            + (sup_xyz @ pack.wl[i]) * inv_r
+        h1 = torch.relu(a[rows, idx] - b_j[:, :, i, None, :])
+        h2 = torch.relu(round_h1(h1) @ pack.w2_t[i].float().t()
+                        + pack.b2[i])
         h2 = torch.where(valid[..., None], h2,
                          torch.full_like(h2, -float('inf')))
         outs.append(h2.amax(dim=2))
-    fused = _bf16(torch.cat(outs + [node_f], dim=-1))
-    return torch.relu(fused @ _bf16(w.wfu) + w.bfu)
+    fused = round_cat(torch.cat(outs + [node_f], dim=-1))
+    wfu = pack.wfu_t.float().transpose(1, 2).reshape(-1, pack.wfu_t.shape[-1])
+    return torch.relu(fused @ wfu + pack.bfu)
 
 
-def desa_dense(pcl_feat, node_feat, pcl_xyz, node_xyz, w: DesaWeights,
-               radius: Sequence[float] = (0.1, 0.2, 0.4),
-               num_samples: Sequence[int] = (64, 64, 64),
-               mode: str = 'highest'):
-    """The K1 entry point. CPU tensors take the plain version; CUDA
-    tensors launch the mode's kernel (and raise on anything it does not
-    take). 'highest' takes float32 features, 'default' bfloat16."""
-    if pcl_feat.device.type == 'cpu':
-        return desa_dense_plain(pcl_feat, node_feat, pcl_xyz, node_xyz, w,
-                                radius, num_samples, mode)
-    if pcl_feat.device.type != 'cuda':
-        raise ValueError(f'unsupported device {pcl_feat.device}')
-    if mode not in ('highest', 'default'):
-        raise ValueError(f'unknown mode {mode!r}')
-    feat_dtype = torch.float32 if mode == 'highest' else torch.bfloat16
+def _check_inputs(pcl_feat, node_feat, pcl_xyz, node_xyz, radius,
+                  num_samples, feat_dtype):
+    """Raise on what the kernels do not take; returns (B, N, J, C)."""
     b, n, c = pcl_feat.shape
     j = node_feat.shape[1]
     dev = pcl_feat.device
@@ -162,30 +229,154 @@ def desa_dense(pcl_feat, node_feat, pcl_xyz, node_xyz, w: DesaWeights,
         raise ValueError(f'support of {n + j} points exceeds {MAX_SUPPORT}')
     check_tensor(pcl_feat, 'pcl_feat', (b, n, c), dev, feat_dtype)
     check_tensor(node_feat, 'node_feat', (b, j, c), dev, feat_dtype)
-    for t, name, shape in ((pcl_xyz, 'pcl_xyz', (b, n, 3)),
-                           (node_xyz, 'node_xyz', (b, j, 3)),
-                           (w.wf, 'wf', (3, c, c)), (w.wl, 'wl', (3, 3, c)),
+    check_tensor(pcl_xyz, 'pcl_xyz', (b, n, 3), dev)
+    check_tensor(node_xyz, 'node_xyz', (b, j, 3), dev)
+    return b, n, j, c
+
+
+def _check_weights(w: DesaWeights, c: int, dev) -> None:
+    for t, name, shape in ((w.wf, 'wf', (3, c, c)), (w.wl, 'wl', (3, 3, c)),
                            (w.b1, 'b1', (3, c)), (w.w2, 'w2', (3, c, c)),
                            (w.b2, 'b2', (3, c)), (w.wfu, 'wfu', (4 * c, c)),
                            (w.bfu, 'bfu', (c,))):
         check_tensor(t, name, shape, dev)
+
+
+def desa_dense(pcl_feat, node_feat, pcl_xyz, node_xyz, w,
+               radius: Sequence[float] = (0.1, 0.2, 0.4),
+               num_samples: Sequence[int] = (64, 64, 64),
+               mode: str = 'highest'):
+    """The K1 entry point. CPU tensors take the plain version; CUDA
+    tensors launch the mode's kernel (and raise on anything it does not
+    take). 'highest' takes float32 features, 'default' bfloat16. w is a
+    DesaWeights, or in 'default' also its ServingWeights (a DesaWeights
+    is packed on each call)."""
+    if pcl_feat.device.type == 'cpu':
+        return desa_dense_plain(pcl_feat, node_feat, pcl_xyz, node_xyz,
+                                w, radius, num_samples, mode)
+    if pcl_feat.device.type != 'cuda':
+        raise ValueError(f'unsupported device {pcl_feat.device}')
+    if mode == 'default':
+        pack = w if isinstance(w, ServingWeights) else serving_weights(w)
+        return desa_dense_serving(pcl_feat, node_feat, pcl_xyz, node_xyz,
+                                  pack, radius, num_samples)
+    if mode != 'highest':
+        raise ValueError(f'unknown mode {mode!r}')
+    b, n, j, c = _check_inputs(pcl_feat, node_feat, pcl_xyz, node_xyz,
+                               radius, num_samples, torch.float32)
+    dev = pcl_feat.device
+    _check_weights(w, c, dev)
     out = torch.empty((b, j, c), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernel = KERNEL if mode == 'highest' else SERVING_KERNEL
-        kernel.launch(pcl_feat.data_ptr(), node_feat.data_ptr(),
+        KERNEL.launch(pcl_feat.data_ptr(), node_feat.data_ptr(),
                       pcl_xyz.data_ptr(), node_xyz.data_ptr(),
-                      w.wf.data_ptr(), w.wl.data_ptr(), w.b1.data_ptr(),
-                      w.w2.data_ptr(), w.b2.data_ptr(), w.wfu.data_ptr(),
-                      w.bfu.data_ptr(),
-                      # r (1/r in 'default') and r*r rounded once to
-                      # float32, as the plain version's `/ r` (`* inv_r`)
-                      # and `< r * r` round them
-                      *(float(r) if mode == 'highest' else 1.0 / r
-                        for r in radius),
+                      *(t.data_ptr() for t in w),
+                      # r and r*r rounded once to float32, as the plain
+                      # version's `/ r` and `< r * r` round them
+                      *(float(r) for r in radius),
                       *(float(r * r) for r in radius),
                       *(int(s) for s in num_samples),
                       out.data_ptr(), b, n, j, stream)
     return out
+
+
+def desa_dense_serving(pcl_feat, node_feat, pcl_xyz, node_xyz,
+                       pack: ServingWeights,
+                       radius: Sequence[float] = (0.1, 0.2, 0.4),
+                       num_samples: Sequence[int] = (64, 64, 64)):
+    """K1 'default' on CUDA tensors: the joint term
+    (`serving_joint_term`), then one launch of csrc/desa_dense_serving.cu.
+    The pack was checked when `serving_weights` made it; here only its
+    width and device are."""
+    if pcl_feat.device.type != 'cuda':
+        raise ValueError(f'the kernel takes CUDA tensors, got '
+                         f'{pcl_feat.device}')
+    b, n, j, c = _check_inputs(pcl_feat, node_feat, pcl_xyz, node_xyz,
+                               radius, num_samples, torch.bfloat16)
+    dev = pcl_feat.device
+    if pack.wf_t.shape[-1] != c or pack.wf_t.device != dev:
+        raise ValueError(f'the weights are C={pack.wf_t.shape[-1]} on '
+                         f'{pack.wf_t.device}, the features C={c} on {dev}')
+    for t, name in ((pcl_feat, 'pcl_feat'), (node_feat, 'node_feat')):
+        if t.data_ptr() % 16:       # rows are copied 16 bytes at a time
+            raise ValueError(f'{name} must be 16-byte aligned')
+    joint_term = serving_joint_term(node_feat, node_xyz, pack, radius)
+    out = torch.empty((b, j, c), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        SERVING_KERNEL.launch(
+            pcl_feat.data_ptr(), node_feat.data_ptr(), pcl_xyz.data_ptr(),
+            node_xyz.data_ptr(), joint_term.data_ptr(),
+            *(t.data_ptr() for t in (pack.wf_t, pack.wl, pack.w2_t, pack.b2,
+                                     pack.wfu_t, pack.bfu)),
+            # 1/r and r*r rounded once to float32, as the plain version's
+            # `* inv_r` and `< r * r` round them
+            *(1.0 / r for r in radius), *(float(r * r) for r in radius),
+            *(int(s) for s in num_samples),
+            out.data_ptr(), b, n, j, stream)
+    return out
+
+
+def serving_groups(pcl_xyz, node_xyz,
+                   radius: Sequence[float] = (0.1, 0.2, 0.4),
+                   num_samples: Sequence[int] = (64, 64, 64)):
+    """The groups the 'default' kernel selects, from its own code
+    (kpf_desa_dense_serving_groups, which runs only that part and counts
+    no launch): sel [B,J,R,64] int16, the support indices in slot order
+    and -1 past the group, and nsel [B,J,R] int32. On CUDA tensors."""
+    n, j = pcl_xyz.shape[1], node_xyz.shape[1]
+    if len(radius) != 3 or len(num_samples) != 3:
+        raise ValueError('the kernel takes exactly 3 radii')
+    if not all(1 <= s <= MAX_SAMPLES for s in num_samples):
+        raise ValueError(f'num_samples must lie in [1, {MAX_SAMPLES}]')
+    if n + j > MAX_SUPPORT:
+        raise ValueError(f'support of {n + j} points exceeds {MAX_SUPPORT}')
+    if pcl_xyz.device.type != 'cuda':
+        raise ValueError(f'the kernel takes CUDA tensors, got '
+                         f'{pcl_xyz.device}')
+    b, dev = pcl_xyz.shape[0], pcl_xyz.device
+    check_tensor(pcl_xyz, 'pcl_xyz', (b, n, 3), dev)
+    check_tensor(node_xyz, 'node_xyz', (b, j, 3), dev)
+    sel = torch.empty((b, j, 3, MAX_SAMPLES), dtype=torch.int16, device=dev)
+    nsel = torch.empty((b, j, 3), dtype=torch.int32, device=dev)
+    fn = _library_fn('kpf_desa_dense_serving_groups', GROUPS_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = fn(pcl_xyz.data_ptr(), node_xyz.data_ptr(),
+                *(float(r * r) for r in radius),
+                *(int(s) for s in num_samples), sel.data_ptr(),
+                nsel.data_ptr(), b, n, j,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f'desa_dense_serving groups failed with '
+                           f'cudaError {rc}')
+    return sel, nsel
+
+
+def _library_fn(symbol: str, argtypes, library=None):
+    """Another C entry point of the 'default' kernel's library."""
+    if library is None:
+        SERVING_KERNEL.load()
+        library = SERVING_KERNEL.library
+    fn = getattr(ctypes.CDLL(str(library)), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def serving_kernel_info(library=None):
+    """(joints per block, dynamic shared memory bytes per block, blocks
+    that fit on one SM) of the 'default' kernel's build, as it and the
+    CUDA runtime report them."""
+    fn = _library_fn('kpf_desa_dense_serving_info',
+                     [ctypes.POINTER(ctypes.c_int)] * 3, library)
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = fn(*(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f'desa_dense_serving info failed with cudaError '
+                           f'{rc}')
+    return tuple(v.value for v in vals)

@@ -7,8 +7,10 @@ the conv before it, and the whole computation is one call of
 kernels/desa_dense.py:desa_dense (K1), or of its plain version when the
 caller asks for it. As in the JAX module, a float32 DESA runs K1's exact
 'highest' mode and any other compute dtype its 'default' serving mode, on
-features cast to that dtype; the result comes back in it. The train path
-(gather form with live BatchNorm statistics) is not ported yet.
+features cast to that dtype; the result comes back in it. Without
+gradients the folded weights (and the serving mode's bfloat16 pack) are
+made once and kept (`kernel_weights`). The train path (gather form with
+live BatchNorm statistics) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from torch import nn
 
 from keypointfusion_torch.kernels.desa_dense import (
-    DesaWeights, desa_dense, desa_dense_plain, fold_bn,
+    DesaWeights, desa_dense, desa_dense_plain, fold_bn, serving_weights,
 )
 from keypointfusion_torch.models.resnet import init_conv
 
@@ -78,6 +80,30 @@ class DESA(nn.Module):
             b1=stack([x + y for x, y in zip(bl, bf)]), w2=stack(w2),
             b2=stack(b2), wfu=wfu.contiguous(), bfu=bfu.contiguous())
 
+    def kernel_weights(self, serving: bool = False):
+        """folded_weights(), or with `serving` its pack for K1 'default'
+        (kernels/desa_dense.py:serving_weights). Under no_grad or
+        inference_mode both are kept on the module, outside its
+        state_dict, and made again when a parameter or buffer is replaced
+        or written in place (.to(), load_state_dict, a running statistic):
+        the key is each tensor's (data_ptr, _version, shape), as
+        models/layers.py:cast_param keys its casts."""
+        if torch.is_grad_enabled():
+            w = self.folded_weights()
+            return serving_weights(w) if serving else w
+        tensors = [*self.parameters(), *self.buffers()]
+        stamp = tuple((t.data_ptr(), t._version, t.shape) for t in tensors)
+        hit = self.__dict__.get('_kernel_weights')
+        if hit is None or hit['stamp'] != stamp:
+            # the entry holds the tensors, so no other can take their
+            # addresses
+            hit = self.__dict__['_kernel_weights'] = {
+                'stamp': stamp, 'tensors': tensors,
+                'folded': self.folded_weights(), 'serving': None}
+        if serving and hit['serving'] is None:
+            hit['serving'] = serving_weights(hit['folded'])
+        return hit['serving'] if serving else hit['folded']
+
     def forward(self, pcl_feat, node_feat, pcl_xyz, node_xyz,
                 use_kernel: bool = True):
         """pcl_feat [B,N,C], node_feat [B,J,C], pcl_xyz [B,N,3],
@@ -86,8 +112,9 @@ class DESA(nn.Module):
         if self.training:
             raise NotImplementedError('the DESA train path is not ported')
         dt = self.compute_dtype
+        mode = 'highest' if dt == torch.float32 else 'default'
         fn = desa_dense if use_kernel else desa_dense_plain
+        w = self.kernel_weights(mode == 'default')
         return fn(pcl_feat.to(dt).contiguous(), node_feat.to(dt).contiguous(),
                   pcl_xyz.float().contiguous(), node_xyz.float().contiguous(),
-                  self.folded_weights(), self.radius, self.num_samples,
-                  'highest' if dt == torch.float32 else 'default').to(dt)
+                  w, self.radius, self.num_samples, mode).to(dt)

@@ -1,0 +1,51 @@
+"""Each CUDA kernel's ctypes binding against its C entry point, on the CPU.
+
+The kernels are built and launched only on the card, and ctypes does not
+see a C signature: a binding with one argument too many or of the wrong
+kind fails at the first launch there. This reads each `extern "C"` entry
+point from its source under keypointfusion_torch/csrc/ and holds the
+binding's argtypes to it (the kernels' and K1 'default''s groups-only
+entry point's), kind by kind: a pointer or a stream is a c_void_p, a
+float a c_float, an int a c_int.
+"""
+
+import ctypes
+import re
+
+import pytest
+
+from keypointfusion_torch.kernels import desa_dense as k1
+from keypointfusion_torch.kernels import grouped_mlp_pool as k3
+from keypointfusion_torch.kernels import pixel_sampler as k2
+
+# name -> (source, C entry point, argtypes)
+BINDINGS = {k.name: (k.source, k.symbol, k.argtypes)
+            for k in (k1.KERNEL, k1.SERVING_KERNEL, k2.KERNEL,
+                      k2.SERVING_KERNEL, k3.KERNEL)}
+BINDINGS['desa_dense_serving_groups'] = (
+    k1.SERVING_KERNEL.source, 'kpf_desa_dense_serving_groups',
+    k1.GROUPS_ARGTYPES)
+
+
+def c_parameter_kinds(source: str, symbol: str):
+    match = re.search(r'extern "C" int ' + symbol + r'\s*\(([^)]*)\)',
+                      source)
+    assert match, f'{symbol} not found'
+    kinds = []
+    for param in match.group(1).split(','):
+        param = param.strip()
+        if '*' in param or param.startswith('cudaStream_t'):
+            kinds.append(ctypes.c_void_p)
+        elif param.startswith('float'):
+            kinds.append(ctypes.c_float)
+        elif param.startswith('int'):
+            kinds.append(ctypes.c_int)
+        else:
+            raise AssertionError(f'unknown parameter kind: {param}')
+    return kinds
+
+
+@pytest.mark.parametrize('name', sorted(BINDINGS))
+def test_binding_matches_c_entry_point(name):
+    source, symbol, argtypes = BINDINGS[name]
+    assert list(argtypes) == c_parameter_kinds(source.read_text(), symbol)
