@@ -18,16 +18,18 @@ reports them, and last {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero. Without a CUDA device it exits 1 and prints no result.
 
 Every kernel's `ms` is the CUDA-event time of back-to-back calls of its
-entry point after a warm-up (L2 not flushed). K1 'default''s phase line
-also gives the torch.profiler device time of its kernel alone and of its
-entry point (the joint term, then the kernel), the entry point's host
-time per call, and what ptxas and the CUDA runtime report (registers,
-spills, shared memory, blocks per SM).
+entry point after a warm-up (L2 not flushed). Both K1 phase lines also
+give the torch.profiler device time of the kernel alone and of its entry
+point, the entry point's host time per call, and what ptxas and the CUDA
+runtime report (registers, spills, shared memory, blocks per SM).
 A kernel's bound is the larger of the bytes it must move over
 3.35 TB/s and its operations over the card's peak for their type: float32
 on the CUDA cores at 67 TFLOP/s, products of bfloat16 operands at 989
-TFLOP/s (the H100 SXM's published peaks). Float32 matmuls and
-convolutions run without TF32 throughout.
+TFLOP/s, TF32 products at 495 TFLOP/s (the H100 SXM's published peaks);
+K1 'highest''s products at float32 accuracy count as three TF32 products,
+as its kernel runs them. Float32 matmuls and convolutions run without
+TF32 throughout, but for the control that shows one TF32 pass fails K1
+'highest''s limit.
 """
 
 import json
@@ -43,8 +45,13 @@ TIE_ELEMENTS = 8   # batch elements of K2's flat-background case
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 K2_TOL = 1e-6    # same selection, same float32 operations in the same order
-K1_TOL = 1e-4    # cuBLAS sums the 128/512-wide products in another order
+# three TF32 products with float32 sums (the kernel) against float32
+# products (the plain version): 3.05e-5 at batch 8, 2.5e-5 at batch 2
+# (emulated on the CPU); one TF32 product lies 0.012-0.016 away, and
+# check_highest_contract shows the card's TF32 products outside
+K1_TOL = 1e-4
 K3_TOL = 1e-4    # as K1
 K3_VS_K1 = (1e-3, 2e-3)   # rtol, atol: the JAX package's bound for K3 vs DESA
 # of the scale: sums in another order, then bfloat16 roundings of h1 and of
@@ -118,9 +125,10 @@ def device_ms(fn, iters, name=''):
     return total / iters / 1e3
 
 
-def bound_ms(nbytes, flops, bf16_flops=0):
+def bound_ms(nbytes, flops, bf16_flops=0, tf32_flops=0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops / FP32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S) * 1e3
+    t_ops = (flops / FP32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S
+             + tf32_flops / TF32_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
@@ -337,6 +345,30 @@ def check_serving_contract(args, w, pack, want, radius, samples, tol):
             'controls_vs_plain': json.dumps(dist)}
 
 
+def check_highest_contract(args, w, want, radius, samples):
+    """What the comparison of K1 'highest' with its plain version must tell
+    apart: the plain version with one TF32 pass per product (cuBLAS with
+    TF32 on, the flag restored after) must lie outside K1_TOL; the
+    kernel's arithmetic, three TF32 passes emulated bit for bit
+    (`_desa_highest_plain(tf32_passes=3)`), inside it."""
+    import torch
+    from keypointfusion_torch.kernels import desa_dense as k1
+
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = k1.desa_dense_plain(*args, w, radius, samples)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    three = k1._desa_highest_plain(*args, w, radius, samples, tf32_passes=3)
+    dist = {'tf32_1pass_cublas': float((one_pass - want).abs().max()),
+            'tf32_3pass_emulated': float((three - want).abs().max())}
+    if not dist['tf32_3pass_emulated'] <= K1_TOL < dist['tf32_1pass_cublas']:
+        raise AssertionError(f'a control lies on the wrong side of the K1 '
+                             f'highest limit {K1_TOL}: {dist}')
+    return {'controls_vs_plain': json.dumps(dist)}
+
+
 def check_desa(dev, batch, mode):
     """K1 in one mode against its plain version. A second call with a first
     radius whose square rounds to 0 leaves every first ball empty, so each
@@ -344,9 +376,10 @@ def check_desa(dev, batch, mode):
     where a joint's d2 to itself is exactly 0). 'default' takes the
     features in bfloat16 and its weights packed once, as models/desa.py
     keeps them; its groups are held slot by slot against the plain ball
-    query, and check_serving_contract runs. Its phase line also gives the
-    device time (torch.profiler) of the kernel alone and of the entry
-    point's call (the joint term, then the kernel)."""
+    query, and check_serving_contract runs; 'highest' takes its weights
+    packed once too, and check_highest_contract runs. The phase line also
+    gives the device time (torch.profiler) of the kernel alone and of the
+    entry point's call ('default': the joint term, then the kernel)."""
     import torch
     from keypointfusion_torch.kernels import desa_dense as k1
     from keypointfusion_torch.ops.ball_query import ball_query_slots
@@ -359,7 +392,7 @@ def check_desa(dev, batch, mode):
     grid_xyz = torch.round(node_xyz * 64) / 64
     with torch.no_grad():
         w = module.folded_weights()
-    kw = k1.serving_weights(w) if serving else w
+    kw = k1.serving_weights(w) if serving else k1.highest_weights(w)
     radius, samples = module.radius, module.num_samples
     empty_radius = (1e-23,) + radius[1:]
     args = (pcl_feat, node_feat, pcl_xyz, node_xyz)
@@ -369,12 +402,13 @@ def check_desa(dev, batch, mode):
     got_e = k1.desa_dense(*empty_args, kw, empty_radius, samples, mode)
     want_e = k1.desa_dense_plain(*empty_args, w, empty_radius, samples, mode)
     torch.cuda.synchronize()
-    err = max(float((got - want).abs().max()),
-              float((got_e - want_e).abs().max()))
+    err_o = float((got - want).abs().max())
+    err_e = float((got_e - want_e).abs().max())
+    err = max(err_o, err_e)
     scale = max(1.0, float(want.abs().max()), float(want_e.abs().max()))
     tol = K1_SERVING_TOL * scale if serving else K1_TOL
     entry = lambda: k1.desa_dense(*args, kw, radius, samples, mode)
-    fields = {}
+    fields = {'err_ordinary': err_o, 'err_empty_first_balls': err_e}
     if serving:
         bad_groups = group_mismatches(pcl_xyz, node_xyz, radius, samples) \
             + group_mismatches(pcl_xyz, grid_xyz, empty_radius, samples)
@@ -383,19 +417,21 @@ def check_desa(dev, batch, mode):
                                  f'unlike the plain ball query')
         fields.update(check_serving_contract(args, w, kw, want, radius,
                                              samples, tol))
-        tile, smem, blocks = k1.serving_kernel_info()
-        fields.update(
-            groups_unlike_plain=bad_groups,
-            joint_tile=tile, grid=json.dumps([-(-21 // tile), BATCH]),
-            smem_bytes=smem, blocks_per_sm=blocks,
-            kernel_device_ms=round(device_ms(
-                entry, 20, 'desa_dense_serving_kernel'), 5),
-            entry_device_ms=round(device_ms(entry, 20), 5),
-            entry_host_ms=round(host_ms(entry, 50), 4),
-            ptxas=json.dumps([ln.strip() for ln in
-                              k1.SERVING_KERNEL.build_log.splitlines()
-                              if 'entry function' in ln or 'registers' in ln
-                              or 'spill' in ln]))
+        fields['groups_unlike_plain'] = bad_groups
+    else:
+        fields.update(check_highest_contract(args, w, want, radius, samples))
+    kernel = k1.SERVING_KERNEL if serving else k1.KERNEL
+    tile, smem, blocks = k1.kernel_info(mode)
+    fields.update(
+        joint_tile=tile, grid=json.dumps([-(-21 // tile), BATCH]),
+        smem_bytes=smem, blocks_per_sm=blocks,
+        kernel_device_ms=round(device_ms(
+            entry, 20, kernel.name + '_kernel'), 5),
+        entry_device_ms=round(device_ms(entry, 20), 5),
+        entry_host_ms=round(host_ms(entry, 50), 4),
+        ptxas=json.dumps([ln.strip() for ln in kernel.build_log.splitlines()
+                          if 'entry function' in ln or 'registers' in ln
+                          or 'spill' in ln]))
     ms = cuda_ms(entry, 20)
     plain_ms = cuda_ms(
         lambda: k1.desa_dense_plain(*args, w, radius, samples, mode), 5, 1)
@@ -416,19 +452,24 @@ def check_desa(dev, batch, mode):
     empty = int((pairwise_sqdist(grid_xyz, torch.cat([pcl_xyz, grid_xyz], 1))
                  < empty_radius[0] ** 2).sum())
     c, m = 128, 1024 + 21
-    mlp = slots * 2 * 2 * c * c                    # h1 and h2 per slot
     fusion = BATCH * 21 * 2 * 4 * c * c            # 512 -> 128 fusion
-    rest = slots * 2 * 3 * c + BATCH * 21 * m * 9  # coordinates, d2
-    if serving:
-        # bfloat16 operands: A_m per held point, h2 per slot, the fusion;
-        # float32: A_m's coordinate term, the joint's own term per radius
-        bf16_ops = (points + slots) * 2 * c * c + fusion
-        rest = points * 2 * 3 * c + BATCH * 21 * m * 9 \
-            + BATCH * 21 * 3 * 2 * c * c
-        bound, bound_by = bound_ms(nbytes(*args, *w, got), rest, bf16_ops)
-        fields['held_points'] = points
-    else:
-        bound, bound_by = bound_ms(nbytes(*args, *w, got), mlp + fusion + rest)
+    # the least work: products A_m = f_m Wf_i per held point, h2 per slot,
+    # the fusion; float32 on the CUDA cores: A_m's coordinate term, d2, the
+    # joint's own term per radius
+    products = (points + slots) * 2 * c * c + fusion
+    rest = points * 2 * 3 * c + BATCH * 21 * m * 9 \
+        + BATCH * 21 * 3 * 2 * c * c
+    moved = nbytes(*args, *w, got)
+    if serving:       # bfloat16 operands
+        bound, bound_by = bound_ms(moved, rest, bf16_flops=products)
+    else:             # float32 accuracy: three TF32 products each
+        bound, bound_by = bound_ms(moved, rest, tf32_flops=3 * products)
+        # every slot's h1 and h2, and the coordinates, on the CUDA cores
+        fields['cuda_core_bound_ms'] = round(bound_ms(
+            moved, slots * 2 * (2 * c * c + 3 * c) + fusion
+            + BATCH * 21 * m * 9)[0], 4)
+        fields['bound_note'] = 'products_as_3_tf32_passes'
+    fields['held_points'] = points
     log(f'kernel K1 {mode}', max_abs_err=err, tol=tol, slots=slots,
         **fields, lone_joint_ball=lone, in_ball_at_empty_radius=empty,
         ms=round(ms, 4), plain_ms=round(plain_ms, 4),

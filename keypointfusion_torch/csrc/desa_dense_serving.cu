@@ -6,10 +6,9 @@
 // MLP operands). Support = the N cloud points followed by the J joints;
 // features arrive in bfloat16, coordinates in float32; bf() rounds a
 // float32 to bfloat16. Per radius r_i, with inv_r = float32(1/r_i):
-//   d2 and the groups: rounded and selected as csrc/desa_common.cuh does
-//     (csrc/desa_mma.cuh has its versions for a tile of joints), so ball
-//     membership matches the plain version and the 'highest' kernel bit
-//     for bit
+//   d2 and the groups: csrc/desa_mma.cuh's, which the 'highest' kernel
+//     shares, so ball membership matches the plain version and the
+//     'highest' kernel bit for bit
 //   A_m[c] = (f_m bf(Wf_i))[c] + (x_m Wl_i)[c] * inv_r      float32 sums
 //   h1     = relu(A_m - b_j),  h2 = relu(bf(h1) bf(W2_i) + b2_i)
 //   out_i  = max of h2 over the group

@@ -14,9 +14,9 @@
 // What bounds it on the H100: float32 operations. At the serving shape
 // (B=64, J=21, S=64, C=128) one radius is 2*(2*128*128 + 3*128) flops per
 // slot, 5.7 GFLOP, a twelfth of a millisecond at the card's float32 peak;
-// its input is the 44 MB grouped tensor, 13 microseconds. The design is
-// K1's (csrc/desa_dense.cu) without the selection, on the same tile
-// product (csrc/desa_common.cuh): tiles of kT = 16 slots
+// its input is the 44 MB grouped tensor, 13 microseconds. One thread per
+// output channel on the CUDA cores, with the tile product of
+// csrc/desa_common.cuh: tiles of kT = 16 slots
 // staged in shared memory as [channel][slot], so each weight a thread
 // loads serves 16 slots and the 16 slot values come as four broadcast
 // float4 loads; h1 stays in shared memory; the only write is [B,J,C].
@@ -70,7 +70,7 @@ grouped_mlp_pool_kernel(const float* __restrict__ rel,      // [B,J,S,3]
     float acc[kT];
 #pragma unroll
     for (int t = 0; t < kT; ++t) acc[t] = 0.0f;
-    desa::tile_dense<false>(wf + c, s_x, acc);
+    desa::tile_dense(wf + c, s_x, acc);
 #pragma unroll
     for (int t = 0; t < kT; ++t) {
       const float loc = fmaf(wl2, s_rel[3 * t + 2],
@@ -83,7 +83,7 @@ grouped_mlp_pool_kernel(const float* __restrict__ rel,      // [B,J,S,3]
 
 #pragma unroll
     for (int t = 0; t < kT; ++t) acc[t] = 0.0f;
-    desa::tile_dense<false>(w2 + c, s_h, acc);
+    desa::tile_dense(w2 + c, s_h, acc);
 #pragma unroll
     for (int t = 0; t < kT; ++t) {
       const float x = s_rel[3 * t], y = s_rel[3 * t + 1], z = s_rel[3 * t + 2];

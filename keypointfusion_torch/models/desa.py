@@ -5,23 +5,24 @@ Parameters carry the reference's names (per-radius 1x1 Conv2d + BatchNorm2d
 stacks, a Conv1d + BatchNorm1d fusion). In eval every BatchNorm folds into
 the conv before it, and the whole computation is one call of
 kernels/desa_dense.py:desa_dense (K1), or of its plain version when the
-caller asks for it. As in the JAX module, a float32 DESA runs K1's exact
-'highest' mode and any other compute dtype its 'default' serving mode, on
-features cast to that dtype; the result comes back in it. Without
-gradients the folded weights (and the serving mode's bfloat16 pack) are
-made once and kept (`kernel_weights`). The train path (gather form with
+caller asks for it. As in the JAX module, a float32 DESA runs K1's
+float32 'highest' mode and any other compute dtype its 'default' serving
+mode, on features cast to that dtype; the result comes back in it.
+Without gradients the folded weights and the mode's pack of them are made
+once and kept (`kernel_weights`). The train path (gather form with
 live BatchNorm statistics) is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from keypointfusion_torch.kernels.desa_dense import (
-    DesaWeights, desa_dense, desa_dense_plain, fold_bn, serving_weights,
+    DesaWeights, desa_dense, desa_dense_plain, fold_bn, highest_weights,
+    serving_weights,
 )
 from keypointfusion_torch.models.resnet import init_conv
 
@@ -80,17 +81,19 @@ class DESA(nn.Module):
             b1=stack([x + y for x, y in zip(bl, bf)]), w2=stack(w2),
             b2=stack(b2), wfu=wfu.contiguous(), bfu=bfu.contiguous())
 
-    def kernel_weights(self, serving: bool = False):
-        """folded_weights(), or with `serving` its pack for K1 'default'
-        (kernels/desa_dense.py:serving_weights). Under no_grad or
-        inference_mode both are kept on the module, outside its
-        state_dict, and made again when a parameter or buffer is replaced
-        or written in place (.to(), load_state_dict, a running statistic):
-        the key is each tensor's (data_ptr, _version, shape), as
-        models/layers.py:cast_param keys its casts."""
+    def kernel_weights(self, pack: Optional[str] = None):
+        """folded_weights(), or with `pack` its pack for that K1 mode
+        (kernels/desa_dense.py: 'highest' -> highest_weights, 'default' ->
+        serving_weights). Under no_grad or inference_mode each is kept on
+        the module, outside its state_dict, and made again when a
+        parameter or buffer is replaced or written in place (.to(),
+        load_state_dict, a running statistic): the key is each tensor's
+        (data_ptr, _version, shape), as models/layers.py:cast_param keys
+        its casts."""
+        make = {None: lambda w: w, 'highest': highest_weights,
+                'default': serving_weights}[pack]
         if torch.is_grad_enabled():
-            w = self.folded_weights()
-            return serving_weights(w) if serving else w
+            return make(self.folded_weights())
         tensors = [*self.parameters(), *self.buffers()]
         stamp = tuple((t.data_ptr(), t._version, t.shape) for t in tensors)
         hit = self.__dict__.get('_kernel_weights')
@@ -99,10 +102,10 @@ class DESA(nn.Module):
             # addresses
             hit = self.__dict__['_kernel_weights'] = {
                 'stamp': stamp, 'tensors': tensors,
-                'folded': self.folded_weights(), 'serving': None}
-        if serving and hit['serving'] is None:
-            hit['serving'] = serving_weights(hit['folded'])
-        return hit['serving'] if serving else hit['folded']
+                None: self.folded_weights()}
+        if pack not in hit:
+            hit[pack] = make(hit[None])
+        return hit[pack]
 
     def forward(self, pcl_feat, node_feat, pcl_xyz, node_xyz,
                 use_kernel: bool = True):
@@ -114,7 +117,7 @@ class DESA(nn.Module):
         dt = self.compute_dtype
         mode = 'highest' if dt == torch.float32 else 'default'
         fn = desa_dense if use_kernel else desa_dense_plain
-        w = self.kernel_weights(mode == 'default')
+        w = self.kernel_weights(mode)
         return fn(pcl_feat.to(dt).contiguous(), node_feat.to(dt).contiguous(),
                   pcl_xyz.float().contiguous(), node_xyz.float().contiguous(),
                   w, self.radius, self.num_samples, mode).to(dt)

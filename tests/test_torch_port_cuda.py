@@ -10,9 +10,12 @@ Tolerances:
   * K2 (pixel sampler): 1e-6. The kernel and its plain version select the
     same 4 pixels (same d2 rounding, ties to the lower index) and weight
     and add them with the same float32 operations in the same order.
-  * K1 (DESA): 1e-4 on values of order 1. Same groups; the plain version's
-    matmuls (cuBLAS, TF32 off) sum the 128- and 512-wide products in
-    another order than the kernel's per-thread loops.
+  * K1 (DESA): 1e-4 on values of order 1 (scales 20-35 here). Same
+    groups; the kernel runs each product as three TF32 products with
+    float32 sums, the plain version's matmuls (cuBLAS, TF32 off) in
+    float32. One TF32 product per product (the plain version with TF32
+    on) lies outside the limit, and the test checks that it does; each
+    case records its errors, as the serving mode's do.
   * K2 serving mode: one bfloat16 ulp; the kernel and its plain version
     select the same pixels and sum in the same order, so they are expected
     to agree bit for bit (the plain version's fused multiply-adds are
@@ -168,21 +171,18 @@ def test_pixel_sampler_serving_kernel_matches_plain_on_card(cuda_device):
                  <= bf16_ulp(want)).all())
 
 
-SERVING_CASES = ('ordinary', 'empty_first_ball', 'five_joints', 'one_joint',
-                 'full_groups', 'small_groups')
+DESA_CASES = ('ordinary', 'empty_first_ball', 'five_joints', 'one_joint',
+              'full_groups', 'small_groups')
 SERVING_TOL = 5e-4     # of the scale
+HIGHEST_TOL = 1e-4
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('case', SERVING_CASES)
-def test_desa_serving_kernel_matches_plain_on_card(cuda_device, case,
-                                                   record_property):
-    """K1 'default': J not a multiple of the kernel's joint tile (5) and
-    J = 1, every group full (64 slots, radius 2), groups of under 16 slots
-    (one warp of four busy), every first ball empty. The public entry
-    point with unpacked weights gives the same bits as a packed launch;
-    the kernel's groups are the plain ball query's; each control lies
-    outside the limit."""
+def desa_variant(case, device):
+    """desa_case() on `device` in one of DESA_CASES: J not a multiple of
+    the kernels' joint tiles (5) and J = 1, every group full (64 slots,
+    radius 2), groups of under 16 slots (one warp of four per group busy),
+    every first ball empty. Returns (inputs, module, radius,
+    num_samples)."""
     inputs, module = desa_case()
     radius, num_samples = module.radius, module.num_samples
     if case == 'empty_first_ball':
@@ -196,9 +196,52 @@ def test_desa_serving_kernel_matches_plain_on_card(cuda_device, case,
         radius = (2.0, 2.0, 2.0)
     elif case == 'small_groups':
         num_samples = (5, 11, 15)
-    module = module.to(cuda_device)
-    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
             for x in inputs]
+    return args, module.to(device), radius, num_samples
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', DESA_CASES)
+def test_desa_highest_kernel_cases_on_card(cuda_device, case,
+                                           record_property):
+    """K1 'highest' in every case of desa_variant. The public entry point
+    with unpacked weights gives the same bits as a packed launch; the
+    plain version with one TF32 pass per product lies outside the
+    limit."""
+    args, module, radius, num_samples = desa_variant(case, cuda_device)
+    with torch.no_grad():
+        w = module.folded_weights()
+        pack = k1.highest_weights(w)
+        before = k1.KERNEL.launches
+        got = k1.desa_dense_highest(*args, pack, radius, num_samples)
+        entry = k1.desa_dense(*args, w, radius, num_samples)
+        want = k1.desa_dense_plain(*args, w, radius, num_samples)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            one_pass = k1.desa_dense_plain(*args, w, radius, num_samples)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    assert k1.KERNEL.launches == before + 2
+    assert torch.equal(entry, got)
+    err = float((got - want).abs().max())
+    control = float((one_pass - want).abs().max())
+    record_property('scale', float(want.abs().max()))
+    record_property('max_abs_err', err)
+    record_property('tf32_1pass_vs_plain', control)
+    torch.testing.assert_close(got, want, rtol=0, atol=HIGHEST_TOL)
+    assert control > HIGHEST_TOL, control
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', DESA_CASES)
+def test_desa_serving_kernel_matches_plain_on_card(cuda_device, case,
+                                                   record_property):
+    """K1 'default' in every case of desa_variant. The public entry
+    point with unpacked weights gives the same bits as a packed launch;
+    the kernel's groups are the plain ball query's; each control lies
+    outside the limit."""
+    args, module, radius, num_samples = desa_variant(case, cuda_device)
     args[0], args[1] = args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)
     with torch.no_grad():
         w = module.folded_weights()

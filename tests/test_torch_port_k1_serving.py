@@ -169,7 +169,7 @@ def test_desa_keeps_its_kernel_weights(dtype):
             assert torch.equal(module(*args), first)
         assert module._kernel_weights is entry
         if dtype == BF:
-            assert isinstance(entry['serving'], k1.ServingWeights)
+            assert isinstance(entry['default'], k1.ServingWeights)
         assert torch.equal(first, fresh_output())
 
         module.load_state_dict({k: v * 1.5 if v.is_floating_point() else v
