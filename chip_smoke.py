@@ -11,17 +11,20 @@ KPFusion-resnet-18 forward through the kernels with the plain path, in
 float32 and in bfloat16. Then drives each path with the launch counters
 set to 0 just before and read just after: the float32 and the bfloat16
 streaming engine, each answering 4 requests of 64 full 480x640 RGB-D
-frames, and K3's own entry point, desa_apply_inference. Weights are
-random, drawn from a seed. Every phase prints one line; then a JSON line
-describing each kernel, the card's name and power limit as nvidia-smi
-reports them, and last {"ok": true, "device": {...}}. Any failure raises
-and exits non-zero. Without a CUDA device it exits 1 and prints no result.
+frames (the bfloat16 line gives how many pixels K2 'default' selects per
+point on one request's data), and K3's own entry point,
+desa_apply_inference. Weights are random, drawn from a seed. Every phase
+prints one line; then a JSON line describing each kernel, the card's name
+and power limit as nvidia-smi reports them, and last {"ok": true,
+"device": {...}}. Any failure raises and exits non-zero. Without a CUDA
+device it exits 1 and prints no result.
 
 Every kernel's `ms` is the CUDA-event time of back-to-back calls of its
 entry point after a warm-up (L2 not flushed). Both K1 phase lines also
 give the torch.profiler device time of the kernel alone and of its entry
 point, the entry point's host time per call, and what ptxas and the CUDA
-runtime report (registers, spills, shared memory, blocks per SM).
+runtime report (registers, spills, shared memory, blocks per SM); K2
+'default''s gives the kernel's device time and the same build figures.
 A kernel's bound is the larger of the bytes it must move over
 3.35 TB/s and its operations over the card's peak for their type: float32
 on the CUDA cores at 67 TFLOP/s, products of bfloat16 operands at 989
@@ -201,10 +204,54 @@ def sampler_inputs(dev, batch):
     return pcl.contiguous(), img_xyz.contiguous(), feat
 
 
+def selection_spread(pcl, img_xyz):
+    """K2 'default''s pixels selected per point: mean, p99 and max, and
+    the total."""
+    import torch
+    from keypointfusion_torch.kernels import pixel_sampler as k2
+    d2 = k2.serving_sqdist(pcl, img_xyz)
+    counts = (d2 <= k2.serving_threshold(d2)).sum(-1).flatten().float()
+    return {'mean': round(float(counts.mean()), 3),
+            'p99': float(torch.quantile(counts, 0.99)),
+            'max': int(counts.max()), 'total': int(counts.sum())}
+
+
+def check_all_selected(pcl, img_xyz, feat):
+    """K2 'default' with the first TIE_ELEMENTS elements' pixel centres
+    at 3 positions: no point has a 4th distinct distance, so each selects
+    all HW pixels. Returns (the largest error in bfloat16 ulps, the
+    kernel's ms); raises unless it is bit for bit within one ulp."""
+    import torch
+    from keypointfusion_torch.kernels import pixel_sampler as k2
+    e = TIE_ELEMENTS
+    hw = img_xyz.shape[1]
+    rng = np.random.RandomState(3)
+    where = torch.from_numpy(rng.uniform(-1, 1, (e, 3, 3)).astype(
+        np.float32)).to(img_xyz.device)
+    pick = torch.from_numpy(rng.randint(0, 3, (e, hw))).to(img_xyz.device)
+    img3 = where[torch.arange(e, device=pick.device)[:, None], pick]
+    args = (pcl[:e].contiguous(), img3.contiguous(), feat[:e].contiguous())
+    if selection_spread(*args[:2])['mean'] != hw:
+        raise AssertionError('the all-selected case does not select all')
+    got = k2.sample_pixel_features_fused(*args, mode='default')
+    want = k2.sample_pixel_features_plain(*args, mode='default')
+    ulps = float(((got.float() - want.float()).abs()
+                  / bf16_ulp(want)).max())
+    if not ulps <= 1:
+        raise AssertionError(f'K2 default, all selected: {ulps} ulps from '
+                             f'its plain version')
+    ms = cuda_ms(lambda: k2.sample_pixel_features_fused(
+        *args, mode='default'), 5)
+    return ulps, ms
+
+
 def check_pixel_sampler(dev, batch, mode):
     """K2 in one mode against its plain version. 'highest': the flat
     background's 4th/5th-nearest ties go to the lower index. 'default':
-    the flat background selects whole tied rings, more than 4 pixels."""
+    the flat background selects whole tied rings, more than 4 pixels, and
+    check_all_selected runs; the phase line gives the selection's spread,
+    the kernel's device time (torch.profiler), its ptxas report and its
+    launch shape."""
     import torch
     from keypointfusion_torch.kernels import pixel_sampler as k2
     from keypointfusion_torch.ops.pairwise import pairwise_sqdist
@@ -223,18 +270,30 @@ def check_pixel_sampler(dev, batch, mode):
     err = float(diff.max())
     b, n, hw, c = BATCH, 1024, 1024, 277
     if serving:
-        d2 = k2.serving_sqdist(pcl, img_xyz)
-        selected = int((d2 <= k2.serving_threshold(d2)).sum())
-        most = int((d2 <= k2.serving_threshold(d2)).sum(-1).max())
+        spread = selection_spread(pcl, img_xyz)
+        selected = spread['total']
         ok = bool((diff <= bf16_ulp(want)).all())
         tol = 'one bfloat16 ulp'
-        # two distance passes (3 subtractions, 3 multiply-adds and a
-        # compare per pair), the weights, then bf16 x bf16 products
-        flops = 2 * b * n * hw * 7 + selected * 3
+        # one distance pass (3 subtractions, 3 multiply-adds and a compare
+        # per pair), the selected pixels' weights, then bf16 x bf16
+        # products: the function's work, whatever computes it
+        flops = b * n * hw * 7 + selected * 3
         bound, bound_by = bound_ms(nbytes(pcl, img_xyz, feat, got), flops,
                                    selected * c * 2)
-        fields = dict(selected=selected, most_selected=most)
-        if most <= 4:
+        all_ulps, all_ms = check_all_selected(pcl, img_xyz, feat)
+        per_block, smem, blocks, threads, rows = k2.serving_kernel_info(hw, c)
+        fields = dict(
+            selected_per_point=json.dumps(spread), all_selected_ulps=all_ulps,
+            all_selected_ms=round(all_ms, 4), points_per_block=per_block,
+            threads=threads, rows_in_flight=rows, smem_bytes=smem,
+            blocks_per_sm=blocks,
+            kernel_device_ms=round(device_ms(
+                run, 20, 'pixel_sampler_serving_kernel'), 5),
+            ptxas=json.dumps([
+                ln.strip() for ln in k2.SERVING_KERNEL.build_log.splitlines()
+                if 'entry function' in ln or 'registers' in ln
+                or 'spill' in ln]))
+        if spread['max'] <= 4:
             raise AssertionError('no point selects more than 4 pixels')
     else:
         d2 = torch.sort(pairwise_sqdist(pcl[:TIE_ELEMENTS],
@@ -682,7 +741,22 @@ def check_serving(dev, kernels, card, dtype):
         engine.model.use_kernels = True
         return engine._unpack(packed.cpu().numpy())
 
-    got, want = answer(eng, True), answer(eng, False)
+    # the sampler's inputs in this request, for K2 'default''s spread
+    import keypointfusion_torch.models.kpfusion as kpf
+    sampled = []
+
+    def recording(*args, **kw):
+        sampled.append(args[:2])
+        return sampler(*args, **kw)
+
+    sampler = kpf.sample_pixel_features_fused
+    kpf.sample_pixel_features_fused = recording
+    try:
+        got = answer(eng, True)
+    finally:
+        kpf.sample_pixel_features_fused = sampler
+    want = answer(eng, False)
+    spread = selection_spread(*sampled[0])
     if dtype == torch.float32:
         for key, tol in SERVING_TOL.items():
             err = float(np.abs(got[key] - want[key]).max())
@@ -734,7 +808,9 @@ def check_serving(dev, kernels, card, dtype):
     log(f'serving {str(dtype).split(".")[-1]}', requests=REQUESTS,
         frames=frames, seconds=round(seconds, 4),
         frames_per_s=round(frames / seconds, 1),
-        launches=json.dumps(launches), card=json.dumps(card))
+        launches=json.dumps(launches), card=json.dumps(card),
+        **({} if dtype == torch.float32 else
+           {'k2_default_selected_per_point': json.dumps(spread)}))
     return launches
 
 

@@ -24,7 +24,11 @@ kernel computes in interpret mode (its lines 66-83, 134-156, 176-195):
 Here the sums run over the selected pixels in index order, in the kernel
 and in its plain version alike, so the two agree bit for bit; XLA's dense
 product sums them in its own order (one bfloat16 ulp at most after the
-final rounding).
+final rounding). The serving kernel finds the threshold and the selection
+otherwise than the plain version (per-lane minima reduced over the warp on
+the values' bits, ballots by chunk, rows added a few at a time);
+`_serving_plain_lanes` runs its steps on the CPU, and the tests hold it to
+the plain version.
 """
 
 from __future__ import annotations
@@ -45,10 +49,12 @@ KERNEL = CudaKernel('pixel_sampler', 'pixel_sampler.cu', 'kpf_pixel_sampler',
 SERVING_KERNEL = CudaKernel(
     'pixel_sampler_serving', 'pixel_sampler_serving.cu',
     'kpf_pixel_sampler_serving', [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+SERVING_INFO_ARGTYPES = [_I, _I] + [_P] * 5
 K_NEAREST = 4            # the only k the kernels take
 MAX_HW = 2048            # pixels staged in shared memory per batch element
 MAX_SERVING_C = 384      # channels a lane of the serving kernel accumulates
 NO_THRESHOLD = 1e30      # the JAX kernel's BIG
+_INF_BITS = 0x7f800000   # float32 +inf
 
 
 def serving_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -67,6 +73,86 @@ def serving_threshold(d2: torch.Tensor, k: int = K_NEAREST) -> torch.Tensor:
     for _ in range(k - 1):
         thresh = torch.where(d2 <= thresh, big, d2).amin(-1, keepdim=True)
     return thresh
+
+
+def _least_above(bits: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The serving kernel's step t -> the least value above t, on float32
+    bit patterns as int64 [..., lanes, chunks] (d2 >= 0, so the bits order
+    as the floats): each lane's unsigned min of bits - t - 1 (mod 2^32,
+    where the values at or below t wrap past 2^31), the min over the
+    lanes, and +inf's bits when nothing lies above t."""
+    above = t + 1
+    u = ((bits - above[..., None, None]) % 2 ** 32).amin(-1).amin(-1)
+    return torch.where(u < 2 ** 31, u + above, torch.full_like(u, _INF_BITS))
+
+
+def _serving_plain_lanes(pcl_xyz, img_xyz, flat_feat, lanes: int = 32,
+                         rows_in_flight: int = 2):
+    """sample_pixel_features_plain(mode='default') by the serving kernel's
+    own steps (csrc/pixel_sampler_serving.cu), in plain PyTorch: lane l of
+    a point's warp holds d2 of the pixels l + lanes*i, the pixels padded
+    with +inf to whole groups of 8 chunks; the threshold is the min over
+    the lanes' mins, then three times the least value above it, on the
+    values' bits (`_least_above`); a ballot per chunk, in index order,
+    gives the selected pixels, whose rows are taken `rows_in_flight` at a
+    time (gathered, then added in order). Returns the same bits as the
+    plain version."""
+    d2 = serving_sqdist(pcl_xyz, img_xyz)                   # [B,N,HW]
+    b, n, hw = d2.shape
+    group = 8 * lanes
+    span = -(-hw // group) * group
+    d2 = torch.nn.functional.pad(d2, (0, span - hw), value=float('inf'))
+    by_lane = d2.reshape(b, n, span // lanes, lanes).transpose(-1, -2)
+    bits = by_lane.contiguous().view(torch.int32).long()   # [B,N,lanes,i]
+    t = bits.amin(-1).amin(-1)
+    for _ in range(3):
+        t = _least_above(bits, t)
+    t = t.int().view(torch.float32)
+    thresh = torch.where(torch.isinf(t), torch.full_like(t, NO_THRESHOLD), t)
+
+    # ballots chunk by chunk, lowest lane first: pixel index order
+    selected = d2 <= thresh[..., None]
+    w = torch.where(selected, (1.0 / (d2 + 1e-8)).to(torch.bfloat16).float(),
+                    torch.zeros_like(d2))
+    count = selected.sum(-1)
+    arange = torch.arange(span)
+    queue = torch.sort(torch.where(selected, arange, span + arange),
+                       -1)[0] % span
+    feat = flat_feat.to(torch.bfloat16)
+    rows = torch.arange(b)[:, None]
+    acc = torch.zeros((b, n, feat.shape[-1]))
+    total = torch.zeros((b, n))
+    most = int(count.max())
+    for first in range(0, most, rows_in_flight):
+        slots = range(first, min(first + rows_in_flight, most))
+        gathered = [feat[rows, queue[..., s].clamp_max(hw - 1)].float()
+                    for s in slots]
+        for s, f in zip(slots, gathered):
+            valid = s < count
+            ws = torch.gather(w, -1, queue[..., s, None])[..., 0]
+            total = torch.where(valid, total + ws, total)
+            acc = torch.where(valid[..., None], acc + ws[..., None] * f, acc)
+    return (acc / (total[..., None] + 1e-8)).to(torch.bfloat16)
+
+
+def serving_kernel_info(hw: int, c: int, library=None):
+    """(points per block, dynamic shared memory bytes per block, blocks
+    that fit on one SM, threads per block, rows in flight per warp) of the
+    serving kernel's launch for (hw, c), as it and the CUDA runtime report
+    them; `library` another build of the same source."""
+    if library is None:
+        SERVING_KERNEL.load()
+        library = SERVING_KERNEL.library
+    fn = getattr(ctypes.CDLL(str(library)),
+                 SERVING_KERNEL.symbol + '_info')
+    fn.argtypes = SERVING_INFO_ARGTYPES
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = fn(hw, c, *(ctypes.addressof(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f'pixel_sampler_serving info failed with '
+                           f'cudaError {rc}')
+    return tuple(v.value for v in vals)
 
 
 def sample_pixel_features_plain(pcl_xyz, img_xyz, flat_feat, k: int = 4,

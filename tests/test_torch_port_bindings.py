@@ -5,7 +5,7 @@ see a C signature: a binding with one argument too many or of the wrong
 kind fails at the first launch there. This reads each `extern "C"` entry
 point from its source under keypointfusion_torch/csrc/ and holds the
 binding's argtypes to it (the kernels', K1 'default''s groups-only entry
-point's and both K1 kernels' info entry points'), kind by kind: a pointer or a stream is a c_void_p, a
+point's, both K1 kernels' and K2 'default''s info entry points'), kind by kind: a pointer or a stream is a c_void_p, a
 float a c_float, an int a c_int.
 """
 
@@ -25,6 +25,9 @@ BINDINGS = {k.name: (k.source, k.symbol, k.argtypes)
 BINDINGS['desa_dense_serving_groups'] = (
     k1.SERVING_KERNEL.source, 'kpf_desa_dense_serving_groups',
     k1.GROUPS_ARGTYPES)
+BINDINGS['pixel_sampler_serving_info'] = (
+    k2.SERVING_KERNEL.source, 'kpf_pixel_sampler_serving_info',
+    k2.SERVING_INFO_ARGTYPES)
 for _k in (k1.KERNEL, k1.SERVING_KERNEL):
     BINDINGS[_k.name + '_info'] = (_k.source, _k.symbol + '_info',
                                    k1.INFO_ARGTYPES)

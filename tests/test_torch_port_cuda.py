@@ -19,7 +19,10 @@ Tolerances:
   * K2 serving mode: one bfloat16 ulp; the kernel and its plain version
     select the same pixels and sum in the same order, so they are expected
     to agree bit for bit (the plain version's fused multiply-adds are
-    emulated in float64, which can round a halfway case differently).
+    emulated in float64, which can round a halfway case differently). The
+    cases (SERVING_SAMPLER_CASES): a flat background (whole tied rings),
+    every pixel selected, HW = 2048 (MAX_HW), C = 384 (MAX_SERVING_C), and
+    N = 1000 (not a multiple of the kernel's points per block).
   * K1 serving mode: 5e-4 of the output's scale: sums in another order
     (the tensor cores' against cuBLAS's), then bfloat16 roundings of h1
     and of the fusion input that can fall either way. Plain versions that
@@ -72,6 +75,39 @@ def flat_background_case(b=2, n=256, c=277, seed=0):
     pcl = np.concatenate([k, np.full((b, n, 1), 0.5, np.float32)], -1)
     feat = rng.randn(b, 1024, c).astype(np.float32)
     return pcl, img_xyz, feat
+
+
+def serving_sampler_case(kind, b=2, n=256, hw=1024, c=277, seed=0):
+    """K2 serving inputs as numpy arrays (pcl, img_xyz, feat float32).
+    'random': uniform points and pixel centres (4 pixels selected each).
+    'flat_background': HW pixel centres 32 to a row on one depth plane and
+    points on the same dyadic grid, so equidistant pixels tie exactly and
+    whole rings are selected. 'all_selected': the pixel centres sit at 3
+    positions, so no point has a 4th distinct distance and each selects
+    all HW pixels."""
+    rng = np.random.RandomState(seed)
+    if kind == 'random':
+        pcl = rng.uniform(-.9, .9, (b, n, 3))
+        img_xyz = rng.uniform(-1, 1, (b, hw, 3))
+    elif kind == 'flat_background':
+        rows = hw // 32
+        u, v = np.meshgrid((np.arange(32) + 0.5) / 16.0 - 1.0,
+                           (np.arange(rows) + 0.5) / 16.0 - rows / 32.0)
+        grid = np.stack([u, v, np.full_like(u, 0.5)], -1).reshape(-1, 3)
+        img_xyz = np.broadcast_to(grid, (b, hw, 3))
+        pcl = np.concatenate(
+            [rng.randint(-32, 33, (b, n, 1)) / 32.0,
+             rng.randint(-rows, rows + 1, (b, n, 1)) / 32.0,
+             np.full((b, n, 1), 0.5)], -1)
+    elif kind == 'all_selected':
+        where = rng.uniform(-1, 1, (b, 3, 3))
+        img_xyz = where[np.arange(b)[:, None], rng.randint(0, 3, (b, hw))]
+        pcl = rng.uniform(-.9, .9, (b, n, 3))
+    else:
+        raise ValueError(kind)
+    feat = rng.randn(b, hw, c)
+    return [np.ascontiguousarray(x, dtype=np.float32)
+            for x in (pcl, img_xyz, feat)]
 
 
 def desa_case(b=2, n=1024, seed=0):
@@ -153,12 +189,26 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
+# name -> serving_sampler_case arguments
+SERVING_SAMPLER_CASES = {
+    'flat_background': dict(kind='flat_background'),
+    'all_selected': dict(kind='all_selected'),
+    'hw_2048': dict(kind='flat_background', hw=2048),
+    'c_384': dict(kind='flat_background', c=384),
+    'n_1000': dict(kind='flat_background', n=1000),
+}
+
+
 @pytest.mark.cuda
-def test_pixel_sampler_serving_kernel_matches_plain_on_card(cuda_device):
-    """Flat background: whole tied rings are selected, more than 4 pixels
-    for many points."""
-    pcl, img_xyz, feat = [torch.from_numpy(x).to(cuda_device)
-                          for x in flat_background_case()]
+@pytest.mark.parametrize('case', sorted(SERVING_SAMPLER_CASES))
+def test_pixel_sampler_serving_kernel_matches_plain_on_card(cuda_device,
+                                                            case):
+    """Each case of SERVING_SAMPLER_CASES: the flat backgrounds select
+    whole tied rings, more than 4 pixels for many points; 'all_selected'
+    every pixel for every point."""
+    pcl, img_xyz, feat = [
+        torch.from_numpy(x).to(cuda_device)
+        for x in serving_sampler_case(**SERVING_SAMPLER_CASES[case])]
     feat = feat.to(torch.bfloat16)
     before = k2.SERVING_KERNEL.launches
     got = k2.sample_pixel_features_fused(pcl, img_xyz, feat, mode='default')
@@ -166,7 +216,11 @@ def test_pixel_sampler_serving_kernel_matches_plain_on_card(cuda_device):
     assert k2.SERVING_KERNEL.launches == before + 1
     assert got.dtype == torch.bfloat16
     d2 = k2.serving_sqdist(pcl, img_xyz)
-    assert int((d2 <= k2.serving_threshold(d2)).sum(-1).max()) > 4
+    counts = (d2 <= k2.serving_threshold(d2)).sum(-1)
+    if case == 'all_selected':
+        assert bool((counts == img_xyz.shape[1]).all())
+    else:
+        assert int(counts.max()) > 4
     assert bool(((got.float() - want.float()).abs()
                  <= bf16_ulp(want)).all())
 
