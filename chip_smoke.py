@@ -23,8 +23,8 @@ Every kernel's `ms` is the CUDA-event time of back-to-back calls of its
 entry point after a warm-up (L2 not flushed). Both K1 phase lines also
 give the torch.profiler device time of the kernel alone and of its entry
 point, the entry point's host time per call, and what ptxas and the CUDA
-runtime report (registers, spills, shared memory, blocks per SM); K2
-'default''s gives the kernel's device time and the same build figures.
+runtime report (registers, spills, shared memory, blocks per SM); both
+K2 phase lines give the kernel's device time and the same build figures.
 A kernel's bound is the larger of the bytes it must move over
 3.35 TB/s and its operations over the card's peak for their type: float32
 on the CUDA cores at 67 TFLOP/s, products of bfloat16 operands at 989
@@ -49,7 +49,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 495e12
-K2_TOL = 1e-6    # same selection, same float32 operations in the same order
+K2_TOL = 0.0     # same selection, same float32 operations in the same order
 # three TF32 products with float32 sums (the kernel) against float32
 # products (the plain version): 3.05e-5 at batch 8, 2.5e-5 at batch 2
 # (emulated on the CPU); one TF32 product lies 0.012-0.016 away, and
@@ -216,13 +216,12 @@ def selection_spread(pcl, img_xyz):
             'max': int(counts.max()), 'total': int(counts.sum())}
 
 
-def check_all_selected(pcl, img_xyz, feat):
-    """K2 'default' with the first TIE_ELEMENTS elements' pixel centres
-    at 3 positions: no point has a 4th distinct distance, so each selects
-    all HW pixels. Returns (the largest error in bfloat16 ulps, the
-    kernel's ms); raises unless it is bit for bit within one ulp."""
+def three_positions(pcl, img_xyz, feat):
+    """K2's inputs cut to the first TIE_ELEMENTS elements, their pixel
+    centres moved to 3 positions: no point has a 4th distinct distance, so
+    'default' selects all HW pixels, and each of a point's 4 nearest is a
+    tie ('highest' must take the lowest indices)."""
     import torch
-    from keypointfusion_torch.kernels import pixel_sampler as k2
     e = TIE_ELEMENTS
     hw = img_xyz.shape[1]
     rng = np.random.RandomState(3)
@@ -230,8 +229,16 @@ def check_all_selected(pcl, img_xyz, feat):
         np.float32)).to(img_xyz.device)
     pick = torch.from_numpy(rng.randint(0, 3, (e, hw))).to(img_xyz.device)
     img3 = where[torch.arange(e, device=pick.device)[:, None], pick]
-    args = (pcl[:e].contiguous(), img3.contiguous(), feat[:e].contiguous())
-    if selection_spread(*args[:2])['mean'] != hw:
+    return pcl[:e].contiguous(), img3.contiguous(), feat[:e].contiguous()
+
+
+def check_all_selected(pcl, img_xyz, feat):
+    """K2 'default' on three_positions(): each point selects all HW
+    pixels. Returns (the largest error in bfloat16 ulps, the kernel's ms);
+    raises unless it is bit for bit within one ulp."""
+    from keypointfusion_torch.kernels import pixel_sampler as k2
+    args = three_positions(pcl, img_xyz, feat)
+    if selection_spread(*args[:2])['mean'] != img_xyz.shape[1]:
         raise AssertionError('the all-selected case does not select all')
     got = k2.sample_pixel_features_fused(*args, mode='default')
     want = k2.sample_pixel_features_plain(*args, mode='default')
@@ -245,12 +252,32 @@ def check_all_selected(pcl, img_xyz, feat):
     return ulps, ms
 
 
+def check_all_tied(pcl, img_xyz, feat):
+    """K2 'highest' on three_positions(): every point's 5 nearest pixels
+    tie. Returns (the largest error, the kernel's ms); raises unless it is
+    bit for bit."""
+    import torch
+    from keypointfusion_torch.kernels import pixel_sampler as k2
+    from keypointfusion_torch.ops.pairwise import pairwise_sqdist
+    args = three_positions(pcl, img_xyz, feat)
+    d2 = torch.sort(pairwise_sqdist(*args[:2]), -1)[0]
+    if not bool((d2[..., 0] == d2[..., 4]).all()):
+        raise AssertionError('the all-tied case has a slot that is no tie')
+    got = k2.sample_pixel_features_fused(*args)
+    err = float((got - k2.sample_pixel_features_plain(*args)).abs().max())
+    if not err <= K2_TOL:
+        raise AssertionError(f'K2 highest, all tied: {err} from its plain '
+                             f'version')
+    return err, cuda_ms(lambda: k2.sample_pixel_features_fused(*args), 5)
+
+
 def check_pixel_sampler(dev, batch, mode):
     """K2 in one mode against its plain version. 'highest': the flat
-    background's 4th/5th-nearest ties go to the lower index. 'default':
-    the flat background selects whole tied rings, more than 4 pixels, and
-    check_all_selected runs; the phase line gives the selection's spread,
-    the kernel's device time (torch.profiler), its ptxas report and its
+    background's 4th/5th-nearest ties go to the lower index, and
+    check_all_tied runs. 'default': the flat background selects whole
+    tied rings, more than 4 pixels, check_all_selected runs, and the
+    phase line gives the selection's spread. Both phase lines give the
+    kernel's device time (torch.profiler), its ptxas report and its
     launch shape."""
     import torch
     from keypointfusion_torch.kernels import pixel_sampler as k2
@@ -281,18 +308,9 @@ def check_pixel_sampler(dev, batch, mode):
         bound, bound_by = bound_ms(nbytes(pcl, img_xyz, feat, got), flops,
                                    selected * c * 2)
         all_ulps, all_ms = check_all_selected(pcl, img_xyz, feat)
-        per_block, smem, blocks, threads, rows = k2.serving_kernel_info(hw, c)
         fields = dict(
             selected_per_point=json.dumps(spread), all_selected_ulps=all_ulps,
-            all_selected_ms=round(all_ms, 4), points_per_block=per_block,
-            threads=threads, rows_in_flight=rows, smem_bytes=smem,
-            blocks_per_sm=blocks,
-            kernel_device_ms=round(device_ms(
-                run, 20, 'pixel_sampler_serving_kernel'), 5),
-            ptxas=json.dumps([
-                ln.strip() for ln in k2.SERVING_KERNEL.build_log.splitlines()
-                if 'entry function' in ln or 'registers' in ln
-                or 'spill' in ln]))
+            all_selected_ms=round(all_ms, 4))
         if spread['max'] <= 4:
             raise AssertionError('no point selects more than 4 pixels')
     else:
@@ -301,12 +319,26 @@ def check_pixel_sampler(dev, batch, mode):
         ties = int((d2[..., 3] == d2[..., 4]).sum())
         ok = err <= K2_TOL
         tol = K2_TOL
-        flops = b * n * hw * 9 + b * n * c * 7     # d2 + max; weighted sum
+        # one distance pass (d2 and its clamp), then the weighted sum
+        flops = b * n * hw * 9 + b * n * c * 7
         bound, bound_by = bound_ms(nbytes(pcl, img_xyz, feat, got), flops)
-        fields = dict(boundary_ties=ties)
+        tied_err, tied_ms = check_all_tied(pcl, img_xyz, feat)
+        fields = dict(boundary_ties=ties, all_tied_err=tied_err,
+                      all_tied_ms=round(tied_ms, 4))
         if ties == 0:
             raise AssertionError('the flat-background case has no '
                                  'boundary tie')
+    kernel = k2.SERVING_KERNEL if serving else k2.KERNEL
+    per_block, smem, blocks, threads, rows = k2.kernel_info(mode, hw, c)
+    fields.update(
+        points_per_block=per_block, grid=json.dumps([-(-n // per_block), b]),
+        threads=threads, rows_in_flight=rows, smem_bytes=smem,
+        blocks_per_sm=blocks,
+        kernel_device_ms=round(device_ms(run, 20, kernel.name + '_kernel'),
+                               5),
+        ptxas=json.dumps([ln.strip() for ln in kernel.build_log.splitlines()
+                          if 'entry function' in ln or 'registers' in ln
+                          or 'spill' in ln]))
     ms = cuda_ms(run, 20)
     plain_ms = cuda_ms(plain, 5, 1)
     log(f'kernel K2 {mode}', max_abs_err=err, tol=tol, **fields,

@@ -7,7 +7,11 @@ sample_pixel_features_fused, in its two modes, each a kernel of its own:
 d2 to every back-projected pixel centre by the expansion (ops/pairwise.py),
 the 4 nearest with the lowest index winning ties, weights 1/(d2+1e-8)
 normalized by their sum + 1e-8, and the weighted sum of those 4 pixels'
-feature rows. Returns float32.
+feature rows. Returns float32. Its kernel finds the 4 nearest otherwise
+than the plain version's stable sort (the 4 smallest distinct values by
+warp reductions on the values' bits, then the candidates at or below the
+4th in index order through a 4-slot list); `_highest_plain_lanes` runs
+its steps on the CPU, and the tests hold it to the plain version.
 
 'default' (bfloat16 serving; csrc/pixel_sampler_serving.cu): what the JAX
 kernel computes in interpret mode (its lines 66-83, 134-156, 176-195):
@@ -41,7 +45,7 @@ from keypointfusion_torch.geometry.pcl import (
     inverse_distance_weights, sample_pixel_features, topk_smallest,
 )
 from keypointfusion_torch.kernels.build import CudaKernel, check_tensor
-from keypointfusion_torch.ops.pairwise import fma, pairwise_sqdist
+from keypointfusion_torch.ops.pairwise import fma, pairwise_sqdist, sqnorm3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel('pixel_sampler', 'pixel_sampler.cu', 'kpf_pixel_sampler',
@@ -49,12 +53,14 @@ KERNEL = CudaKernel('pixel_sampler', 'pixel_sampler.cu', 'kpf_pixel_sampler',
 SERVING_KERNEL = CudaKernel(
     'pixel_sampler_serving', 'pixel_sampler_serving.cu',
     'kpf_pixel_sampler_serving', [_P, _P, _P, _P, _I, _I, _I, _I, _P])
-SERVING_INFO_ARGTYPES = [_I, _I] + [_P] * 5
+INFO_ARGTYPES = [_I, _I] + [_P] * 5     # both kernels' `_info` entry points
 K_NEAREST = 4            # the only k the kernels take
 MAX_HW = 2048            # pixels staged in shared memory per batch element
 MAX_SERVING_C = 384      # channels a lane of the serving kernel accumulates
 NO_THRESHOLD = 1e30      # the JAX kernel's BIG
 _INF_BITS = 0x7f800000   # float32 +inf
+_TOP_BITS = 0x7fffffff   # the largest bits a float32 >= +0 (or NaN) has
+_ALL_BITS = 2 ** 32 - 1  # above every value's bits
 
 
 def serving_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -75,15 +81,17 @@ def serving_threshold(d2: torch.Tensor, k: int = K_NEAREST) -> torch.Tensor:
     return thresh
 
 
-def _least_above(bits: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """The serving kernel's step t -> the least value above t, on float32
-    bit patterns as int64 [..., lanes, chunks] (d2 >= 0, so the bits order
-    as the floats): each lane's unsigned min of bits - t - 1 (mod 2^32,
-    where the values at or below t wrap past 2^31), the min over the
-    lanes, and +inf's bits when nothing lies above t."""
+def _least_above(bits: torch.Tensor, t: torch.Tensor,
+                 nothing: int = _INF_BITS) -> torch.Tensor:
+    """The kernels' step t -> the least value above t, on float32 bit
+    patterns as int64 [..., lanes, chunks] (d2 >= 0, so the bits order as
+    the floats): each lane's unsigned min of bits - t - 1 (mod 2^32, where
+    the values at or below t wrap past 2^31), the min over the lanes, and
+    `nothing` when nothing lies above t (+inf's bits in the serving
+    kernel, _TOP_BITS in the 'highest' one)."""
     above = t + 1
     u = ((bits - above[..., None, None]) % 2 ** 32).amin(-1).amin(-1)
-    return torch.where(u < 2 ** 31, u + above, torch.full_like(u, _INF_BITS))
+    return torch.where(u < 2 ** 31, u + above, torch.full_like(u, nothing))
 
 
 def _serving_plain_lanes(pcl_xyz, img_xyz, flat_feat, lanes: int = 32,
@@ -135,23 +143,111 @@ def _serving_plain_lanes(pcl_xyz, img_xyz, flat_feat, lanes: int = 32,
     return (acc / (total[..., None] + 1e-8)).to(torch.bfloat16)
 
 
-def serving_kernel_info(hw: int, c: int, library=None):
+def _highest_plain_lanes(pcl_xyz, img_xyz, flat_feat, lanes: int = 32):
+    """sample_pixel_features_plain(mode='highest') by its kernel's own
+    steps (csrc/pixel_sampler.cu), in plain PyTorch: the pixel centres
+    padded to whole groups of 8 chunks with the origin at |x|^2 = +inf
+    (d2 +inf, never NaN); d2 by the expansion, clamped at 0 on its bits;
+    lane l of a point's warp holds the pixels l + lanes*i; t0 = the min
+    over the lanes' mins, then t1, t2, t3, each the least value above the
+    last (`_least_above`; every pixel a candidate when fewer than 4
+    distinct values exist); the candidates (d2 <= t3) in index order.
+    Up to `lanes` candidates: candidate r's class k (d2 == t_k) and its
+    slot, the candidates of the lower classes and then those of its class
+    before it. More: each enters a 4-slot list on a strictly smaller d2,
+    the walk stopping at the first chunk reached once the 4th slot holds
+    t0. Then the weights and the rows in slot order. Returns the same bits
+    as the plain version."""
+    b, n, _ = pcl_xyz.shape
+    hw = img_xyz.shape[1]
+    group = 8 * lanes
+    span = -(-hw // group) * group
+    img = torch.nn.functional.pad(img_xyz.float(), (0, 0, 0, span - hw))
+    sq = torch.nn.functional.pad(sqnorm3(img_xyz.float()), (0, span - hw),
+                                 value=float('inf'))
+    p = pcl_xyz.float()
+    px, py, pz = (p[:, :, None, i] for i in range(3))
+    qx, qy, qz = (img[:, None, :, i] for i in range(3))
+    cross = fma(pz, qz, fma(py, qy, px * qx))
+    d2 = (sqnorm3(p)[:, :, None] + sq[:, None, :]) - 2.0 * cross
+    bits = d2.view(torch.int32).clamp_min(0).long()        # [B,N,span]
+    by_lane = bits.reshape(b, n, span // lanes, lanes).transpose(-1, -2)
+    ts = [by_lane.amin(-1).amin(-1)]
+    for _ in range(3):
+        ts.append(_least_above(by_lane, ts[-1], _TOP_BITS))
+    t0, t1, t2, t3 = ts
+
+    # the candidates, lowest index first (chunk by chunk, lowest lane first)
+    cand = bits <= t3[..., None]
+    count = cand.sum(-1)
+    arange = torch.arange(span)
+    queue = torch.sort(torch.where(cand, arange, span + arange),
+                       -1)[0] % span
+
+    # up to `lanes` candidates: slots by class, then index
+    m = queue[..., :lanes]
+    has = torch.arange(m.shape[-1]) < count[..., None]
+    v = torch.gather(bits, -1, m)
+    cls = sum((v > t[..., None]).long() for t in (t0, t1, t2))
+    cls = torch.where(has, cls, torch.full_like(cls, K_NEAREST))
+    before = torch.arange(m.shape[-1])[:, None] < torch.arange(
+        m.shape[-1])[None, :]                              # [r', r]
+    lower = cls[..., :, None] < cls[..., None, :]
+    tie = (cls[..., :, None] == cls[..., None, :]) & before
+    rank = (lower | tie).sum(-2)                           # [B,N,lanes]
+    slot = torch.where(has, rank, torch.full_like(rank, lanes))
+    order = torch.argsort(slot, -1)[..., :K_NEAREST]
+    lv = torch.gather(v, -1, order)
+    li = torch.gather(m, -1, order)
+
+    # more: the walk into a 4-slot list
+    many = count > lanes
+    if bool(many.any()):
+        wv = torch.full((b, n, K_NEAREST), _ALL_BITS, dtype=torch.int64)
+        wi = torch.zeros((b, n, K_NEAREST), dtype=torch.int64)
+        done = ~many
+        chunk = torch.full((b, n), -1, dtype=torch.int64)
+        for s in range(int(count.max())):
+            ms = queue[..., s]
+            live = s < count
+            new_chunk = live & (ms // lanes != chunk)
+            done = torch.where(new_chunk & many, wv[..., -1] == t0, done)
+            chunk = torch.where(live, ms // lanes, chunk)
+            vs = torch.gather(bits, -1, ms[..., None])[..., 0]
+            enter = live & ~done & (vs < wv[..., -1])
+            wv[..., -1] = torch.where(enter, vs, wv[..., -1])
+            wi[..., -1] = torch.where(enter, ms, wi[..., -1])
+            for k in range(K_NEAREST - 1, 0, -1):
+                swap = enter & (wv[..., k] < wv[..., k - 1])
+                for x in (wv, wi):
+                    hi, lo = x[..., k].clone(), x[..., k - 1].clone()
+                    x[..., k] = torch.where(swap, lo, hi)
+                    x[..., k - 1] = torch.where(swap, hi, lo)
+            if bool(done.all()):
+                break
+        lv = torch.where(many[..., None], wv, lv)
+        li = torch.where(many[..., None], wi, li)
+    dist = lv.int().view(torch.float32)
+    return sample_pixel_features(flat_feat, inverse_distance_weights(dist),
+                                 li)
+
+
+def kernel_info(mode: str, hw: int, c: int, library=None):
     """(points per block, dynamic shared memory bytes per block, blocks
     that fit on one SM, threads per block, rows in flight per warp) of the
-    serving kernel's launch for (hw, c), as it and the CUDA runtime report
+    mode's kernel launch for (hw, c), as it and the CUDA runtime report
     them; `library` another build of the same source."""
+    kernel = SERVING_KERNEL if mode == 'default' else KERNEL
     if library is None:
-        SERVING_KERNEL.load()
-        library = SERVING_KERNEL.library
-    fn = getattr(ctypes.CDLL(str(library)),
-                 SERVING_KERNEL.symbol + '_info')
-    fn.argtypes = SERVING_INFO_ARGTYPES
+        kernel.load()
+        library = kernel.library
+    fn = getattr(ctypes.CDLL(str(library)), kernel.symbol + '_info')
+    fn.argtypes = INFO_ARGTYPES
     fn.restype = ctypes.c_int
     vals = [ctypes.c_int() for _ in range(5)]
     rc = fn(hw, c, *(ctypes.addressof(v) for v in vals))
     if rc != 0:
-        raise RuntimeError(f'pixel_sampler_serving info failed with '
-                           f'cudaError {rc}')
+        raise RuntimeError(f'{kernel.name} info failed with cudaError {rc}')
     return tuple(v.value for v in vals)
 
 

@@ -5,8 +5,9 @@ see a C signature: a binding with one argument too many or of the wrong
 kind fails at the first launch there. This reads each `extern "C"` entry
 point from its source under keypointfusion_torch/csrc/ and holds the
 binding's argtypes to it (the kernels', K1 'default''s groups-only entry
-point's, both K1 kernels' and K2 'default''s info entry points'), kind by kind: a pointer or a stream is a c_void_p, a
-float a c_float, an int a c_int.
+point's, both K1 kernels' and both K2 kernels' info entry points'), kind
+by kind: a pointer or a stream is a c_void_p, a float a c_float, an int a
+c_int.
 """
 
 import ctypes
@@ -25,12 +26,10 @@ BINDINGS = {k.name: (k.source, k.symbol, k.argtypes)
 BINDINGS['desa_dense_serving_groups'] = (
     k1.SERVING_KERNEL.source, 'kpf_desa_dense_serving_groups',
     k1.GROUPS_ARGTYPES)
-BINDINGS['pixel_sampler_serving_info'] = (
-    k2.SERVING_KERNEL.source, 'kpf_pixel_sampler_serving_info',
-    k2.SERVING_INFO_ARGTYPES)
-for _k in (k1.KERNEL, k1.SERVING_KERNEL):
+for _m, _k in ((k1, k1.KERNEL), (k1, k1.SERVING_KERNEL), (k2, k2.KERNEL),
+               (k2, k2.SERVING_KERNEL)):
     BINDINGS[_k.name + '_info'] = (_k.source, _k.symbol + '_info',
-                                   k1.INFO_ARGTYPES)
+                                   _m.INFO_ARGTYPES)
 
 
 def c_parameter_kinds(source: str, symbol: str):

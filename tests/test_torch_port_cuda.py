@@ -7,9 +7,14 @@ Run on a machine with an NVIDIA GPU and nvcc:
 need and a GPU machine may not have). Without a card every test skips.
 
 Tolerances:
-  * K2 (pixel sampler): 1e-6. The kernel and its plain version select the
-    same 4 pixels (same d2 rounding, ties to the lower index) and weight
-    and add them with the same float32 operations in the same order.
+  * K2 (pixel sampler): 0, bit for bit. The kernel and its plain version
+    select the same 4 pixels (same d2 rounding, ties to the lower index)
+    and weight and add them with the same float32 operations in the same
+    order. The cases (HIGHEST_SAMPLER_CASES): random, a flat background
+    (4th/5th-nearest ties), every slot tied (pixel centres at 3
+    positions), HW = 256 with N = 100 (not a multiple of the kernel's
+    points per block), HW = 100 (not a multiple of 32) with points on the
+    axes, and HW = 2048 (MAX_HW).
   * K1 (DESA): 1e-4 on values of order 1 (scales 20-35 here). Same
     groups; the kernel runs each product as three TF32 products with
     float32 sums, the plain version's matmuls (cuBLAS, TF32 off) in
@@ -62,33 +67,27 @@ def cuda_device():
     return torch.device('cuda')
 
 
-def flat_background_case(b=2, n=256, c=277, seed=0):
-    """32x32 pixel centres on one depth plane and points on the same
-    dyadic grid: every d2 is exact and equidistant pixels tie exactly,
-    also between the 4th and 5th nearest."""
-    rng = np.random.RandomState(seed)
-    r = (np.arange(32, dtype=np.float32) + 0.5) / 16.0 - 1.0
-    u, v = np.meshgrid(r, r)
-    grid = np.stack([u, v, np.full_like(u, 0.5)], -1).reshape(-1, 3)
-    img_xyz = np.broadcast_to(grid, (b, 1024, 3)).copy()
-    k = rng.randint(-32, 33, (b, n, 2)).astype(np.float32) / 32.0
-    pcl = np.concatenate([k, np.full((b, n, 1), 0.5, np.float32)], -1)
-    feat = rng.randn(b, 1024, c).astype(np.float32)
-    return pcl, img_xyz, feat
-
-
-def serving_sampler_case(kind, b=2, n=256, hw=1024, c=277, seed=0):
-    """K2 serving inputs as numpy arrays (pcl, img_xyz, feat float32).
+def sampler_case(kind, b=2, n=256, hw=1024, c=277, seed=0):
+    """K2 inputs as numpy arrays (pcl, img_xyz, feat float32).
     'random': uniform points and pixel centres (4 pixels selected each).
     'flat_background': HW pixel centres 32 to a row on one depth plane and
     points on the same dyadic grid, so equidistant pixels tie exactly and
-    whole rings are selected. 'all_selected': the pixel centres sit at 3
-    positions, so no point has a 4th distinct distance and each selects
-    all HW pixels."""
+    whole rings are selected, also across the 4th/5th nearest.
+    'three_positions': the pixel centres sit at 3 positions, so no point
+    has a 4th distinct distance: the serving mode selects all HW pixels,
+    and every one of the 4 nearest is a tie. 'axes': uniform pixel
+    centres and points on the coordinate axes (two of each point's
+    coordinates 0)."""
     rng = np.random.RandomState(seed)
     if kind == 'random':
         pcl = rng.uniform(-.9, .9, (b, n, 3))
         img_xyz = rng.uniform(-1, 1, (b, hw, 3))
+    elif kind == 'axes':
+        img_xyz = rng.uniform(-1, 1, (b, hw, 3))
+        pcl = np.zeros((b, n, 3))
+        axis = rng.randint(0, 3, (b, n))
+        np.put_along_axis(pcl, axis[..., None],
+                          rng.uniform(-.9, .9, (b, n, 1)), -1)
     elif kind == 'flat_background':
         rows = hw // 32
         u, v = np.meshgrid((np.arange(32) + 0.5) / 16.0 - 1.0,
@@ -99,7 +98,7 @@ def serving_sampler_case(kind, b=2, n=256, hw=1024, c=277, seed=0):
             [rng.randint(-32, 33, (b, n, 1)) / 32.0,
              rng.randint(-rows, rows + 1, (b, n, 1)) / 32.0,
              np.full((b, n, 1), 0.5)], -1)
-    elif kind == 'all_selected':
+    elif kind == 'three_positions':
         where = rng.uniform(-1, 1, (b, 3, 3))
         img_xyz = where[np.arange(b)[:, None], rng.randint(0, 3, (b, hw))]
         pcl = rng.uniform(-.9, .9, (b, n, 3))
@@ -128,15 +127,27 @@ def desa_case(b=2, n=1024, seed=0):
     return inputs, module.eval()
 
 
+# name -> sampler_case arguments, K2 'highest'
+HIGHEST_SAMPLER_CASES = {
+    'random': dict(kind='random'),
+    'flat_background': dict(kind='flat_background'),
+    'all_tied': dict(kind='three_positions'),
+    'hw_256_n_100': dict(kind='flat_background', hw=256, n=100),
+    'hw_100_axes': dict(kind='axes', hw=100),
+    'hw_2048': dict(kind='flat_background', hw=2048),
+}
+
+
 @pytest.mark.cuda
-def test_pixel_sampler_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize('case', sorted(HIGHEST_SAMPLER_CASES))
+def test_pixel_sampler_kernel_matches_plain_on_card(cuda_device, case):
     args = [torch.from_numpy(x).to(cuda_device)
-            for x in flat_background_case()]
+            for x in sampler_case(**HIGHEST_SAMPLER_CASES[case])]
     before = k2.KERNEL.launches
     got = k2.sample_pixel_features_fused(*args)
     want = k2.sample_pixel_features_plain(*args)
     assert k2.KERNEL.launches == before + 1
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -189,10 +200,10 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(m)) - 7)
 
 
-# name -> serving_sampler_case arguments
+# name -> sampler_case arguments, K2 'default'
 SERVING_SAMPLER_CASES = {
     'flat_background': dict(kind='flat_background'),
-    'all_selected': dict(kind='all_selected'),
+    'all_selected': dict(kind='three_positions'),
     'hw_2048': dict(kind='flat_background', hw=2048),
     'c_384': dict(kind='flat_background', c=384),
     'n_1000': dict(kind='flat_background', n=1000),
@@ -208,7 +219,7 @@ def test_pixel_sampler_serving_kernel_matches_plain_on_card(cuda_device,
     every pixel for every point."""
     pcl, img_xyz, feat = [
         torch.from_numpy(x).to(cuda_device)
-        for x in serving_sampler_case(**SERVING_SAMPLER_CASES[case])]
+        for x in sampler_case(**SERVING_SAMPLER_CASES[case])]
     feat = feat.to(torch.bfloat16)
     before = k2.SERVING_KERNEL.launches
     got = k2.sample_pixel_features_fused(pcl, img_xyz, feat, mode='default')

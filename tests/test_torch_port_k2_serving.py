@@ -14,7 +14,7 @@ threshold is 1e30), and HW = 256 with N = 100, not a multiple of the
 kernel's points per block. The plain version is held to JAX's
 interpret-mode kernel in tests/test_torch_port_serving_bf16.py; the kernel
 to the plain version on the card in tests/test_torch_port_cuda.py, on the
-same kinds of case (serving_sampler_case).
+same kinds of case (sampler_case).
 """
 
 import pytest
@@ -22,21 +22,21 @@ import torch
 
 from keypointfusion_torch.kernels import pixel_sampler as k2
 
-from tests.test_torch_port_cuda import serving_sampler_case
+from tests.test_torch_port_cuda import sampler_case
 
 torch.set_num_threads(2)
 
 CASES = {
     'random': dict(kind='random'),
     'flat_background': dict(kind='flat_background'),
-    'all_selected': dict(kind='all_selected'),
+    'all_selected': dict(kind='three_positions'),
     'hw_256_n_100': dict(kind='flat_background', hw=256, n=100),
 }
 
 
 def _inputs(**case):
     pcl, img_xyz, feat = (torch.from_numpy(x)
-                          for x in serving_sampler_case(**case))
+                          for x in sampler_case(**case))
     return pcl, img_xyz, feat.to(torch.bfloat16)
 
 

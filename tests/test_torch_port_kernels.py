@@ -65,6 +65,15 @@ def _sampler_case(kind, c, seed=0):
         img_xyz = uvd_nl_to_xyz_nl(img_uvd_points(img_down), frame)
         pcl = batch['pcl']
         _, idx = img_to_pcl_index(pcl, img_down, frame, select_num=4)
+    elif kind == 'all_tied':
+        # the pixel centres at 3 positions: each point's 4 nearest are all
+        # at one distance, so the lowest indices there must win
+        where = rng.uniform(-1, 1, (2, 3, 3)).astype(np.float32)
+        img_xyz = jnp.asarray(
+            where[np.arange(2)[:, None], rng.randint(0, 3, (2, 1024))])
+        pcl = jnp.asarray(rng.uniform(-.9, .9, (2, 256, 3)).astype(
+            np.float32))
+        _, idx = jax.lax.top_k(-j_sqdist(pcl, img_xyz), 4)
     else:
         # flat background: the 32x32 pixel centres on one depth plane,
         # points on the same dyadic grid, so every d2 is exact and
@@ -82,7 +91,8 @@ def _sampler_case(kind, c, seed=0):
 
 
 @pytest.mark.parametrize('kind,c', [('synthetic', 37), ('synthetic', 277),
-                                    ('flat_background_ties', 37)])
+                                    ('flat_background_ties', 37),
+                                    ('all_tied', 37)])
 def test_pixel_sampler_plain_matches_jax(kind, c):
     pcl, img_xyz, feat, j_idx = _sampler_case(kind, c)
     t = lambda x: torch.from_numpy(np.array(x))
