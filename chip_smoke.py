@@ -29,10 +29,12 @@ A kernel's bound is the larger of the bytes it must move over
 3.35 TB/s and its operations over the card's peak for their type: float32
 on the CUDA cores at 67 TFLOP/s, products of bfloat16 operands at 989
 TFLOP/s, TF32 products at 495 TFLOP/s (the H100 SXM's published peaks);
-K1 'highest''s products at float32 accuracy count as three TF32 products,
-as its kernel runs them. Float32 matmuls and convolutions run without
-TF32 throughout, but for the control that shows one TF32 pass fails K1
-'highest''s limit.
+K1 'highest''s and K3's products at float32 accuracy count as three TF32
+products, as their kernels run them (each phase line gives the bound on
+the CUDA cores beside it). The K3 phase line also gives its kernel's
+device time, ptxas report and launch shape. Float32 matmuls and
+convolutions run without TF32 throughout, but for the controls that show
+one TF32 pass fails K1 'highest''s and K3's limits.
 """
 
 import json
@@ -604,22 +606,51 @@ def same_groups(module, pcl_xyz, node_xyz):
     return same
 
 
+def k3_calls(module, inputs):
+    """The arguments of K3's three launches (one per radius) on `inputs`,
+    as desa_apply_inference builds them."""
+    import torch
+    from keypointfusion_torch.models.desa import fold_conv_bn
+    from keypointfusion_torch.ops.ball_query import (
+        ball_query_group, group_features,
+    )
+    from keypointfusion_torch.ops.pairwise import pairwise_sqdist
+
+    pcl_feat, node_feat, pcl_xyz, node_xyz = inputs
+    sup_xyz = torch.cat([pcl_xyz, node_xyz], 1)
+    sup_feat = torch.cat([pcl_feat, node_feat], 1)
+    d2 = pairwise_sqdist(node_xyz, sup_xyz)
+    calls = []
+    with torch.no_grad():
+        for i, (r, s) in enumerate(zip(module.radius, module.num_samples)):
+            idx, _, rel = ball_query_group(sup_xyz, node_xyz, r, s, d2=d2)
+            weights = [t.contiguous() for pair in (
+                fold_conv_bn(module.conv_l0_blocks[i], module.bn_l0_blocks[i]),
+                fold_conv_bn(module.conv_f0_blocks[i], module.bn_f0_blocks[i]),
+                fold_conv_bn(module.conv_blocks[i][0], module.bn_blocks[i][0]))
+                for t in pair]
+            calls.append(((rel / r).contiguous(),
+                          group_features(sup_feat, idx).contiguous(),
+                          node_feat, *weights))
+    return calls
+
+
 def check_grouped_mlp_pool(dev, batch, kernels):
     """K3's own path: desa_apply_inference on K1's serving-shape inputs,
     driven once with the launch counters set to 0 just before and read
     just after (one launch per radius), against the same function with
     K3's plain version, and against K1 'highest' on the same module at the
     JAX package's bound on every joint whose groups the two rules make
-    alike (at most 1% may differ at a ball's edge). The times are per
-    launch, over the three radii's inputs."""
+    alike (at most 1% may differ at a ball's edge). The plain version with
+    one TF32 pass per product (cuBLAS, TF32 on, the flag restored after)
+    must lie outside K3_TOL. The times are per launch, over the three
+    radii's inputs; the phase line adds the kernel's device time
+    (torch.profiler), its ptxas report and its launch shape. The bound
+    counts the products as three TF32 passes, as the kernel runs them,
+    beside the bound on the CUDA cores."""
     import torch
     from keypointfusion_torch.kernels import desa_dense as k1
     from keypointfusion_torch.kernels import grouped_mlp_pool as k3
-    from keypointfusion_torch.models.desa import fold_conv_bn
-    from keypointfusion_torch.ops.ball_query import (
-        ball_query_group, group_features,
-    )
-    from keypointfusion_torch.ops.pairwise import pairwise_sqdist
 
     inputs, module = desa_inputs(dev, batch)
     with torch.no_grad():
@@ -638,32 +669,35 @@ def check_grouped_mlp_pool(dev, batch, kernels):
         raise AssertionError(f'K3 path launches {launches}, expected '
                              f'{want_launches}')
 
-    # the three launches' inputs, as desa_apply_inference builds them
-    pcl_feat, node_feat, pcl_xyz, node_xyz = inputs
-    sup_xyz = torch.cat([pcl_xyz, node_xyz], 1)
-    sup_feat = torch.cat([pcl_feat, node_feat], 1)
-    d2 = pairwise_sqdist(node_xyz, sup_xyz)
-    calls = []
-    with torch.no_grad():
-        for i, (r, s) in enumerate(zip(module.radius, module.num_samples)):
-            idx, _, rel = ball_query_group(sup_xyz, node_xyz, r, s, d2=d2)
-            weights = [t.contiguous() for pair in (
-                fold_conv_bn(module.conv_l0_blocks[i], module.bn_l0_blocks[i]),
-                fold_conv_bn(module.conv_f0_blocks[i], module.bn_f0_blocks[i]),
-                fold_conv_bn(module.conv_blocks[i][0], module.bn_blocks[i][0]))
-                for t in pair]
-            calls.append(((rel / r).contiguous(),
-                          group_features(sup_feat, idx).contiguous(),
-                          node_feat, *weights))
-    ms = cuda_ms(lambda: [k3.grouped_mlp_pool(*a) for a in calls], 20) / 3
+    pcl_xyz, node_xyz = inputs[2:]
+    calls = k3_calls(module, inputs)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = max(float((k3.grouped_mlp_pool_plain(*a)
+                              - k3.grouped_mlp_pool(*a)).abs().max())
+                       for a in calls)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not one_pass > K3_TOL:
+        raise AssertionError(f'the plain K3 with one TF32 pass lies within '
+                             f'{K3_TOL} of the kernel: {one_pass}')
+    run = lambda: [k3.grouped_mlp_pool(*a) for a in calls]
+    kernel_device_ms = device_ms(run, 20, 'grouped_mlp_pool_kernel') / 3
+    ms = cuda_ms(run, 20) / 3
     plain_ms = cuda_ms(
         lambda: [k3.grouped_mlp_pool_plain(*a) for a in calls], 5, 1) / 3
     c = 128
     slots = sum(a[1].shape[0] * a[1].shape[1] * a[1].shape[2] for a in calls)
-    flops = slots * 2 * (2 * c * c + 3 * c)        # every slot, as K3 does
-    bound, bound_by = bound_ms(
-        sum(nbytes(*a) for a in calls) + 3 * nbytes(got), flops)
+    groups = sum(a[1].shape[0] * a[1].shape[1] for a in calls) // 3
+    moved = sum(nbytes(*a) for a in calls) + 3 * nbytes(got)
+    # every slot, as K3 does: two 128 x 128 products, three TF32 passes
+    # each, and the coordinate term on the CUDA cores
+    bound, bound_by = bound_ms(moved, slots * 2 * 3 * c,
+                               tf32_flops=3 * slots * 2 * 2 * c * c)
     bound /= 3
+    cuda_core_bound = bound_ms(moved, slots * 2 * (2 * c * c + 3 * c))[0] / 3
+    per_block, smem, blocks, threads = k3.kernel_info()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rtol, atol = K3_VS_K1
     same = same_groups(module, pcl_xyz, node_xyz)
     close = ((got - k1_out).abs() <= atol + rtol * k1_out.abs()).all(-1)
@@ -672,10 +706,18 @@ def check_grouped_mlp_pool(dev, batch, kernels):
     log('kernel K3', max_abs_err=err, tol=K3_TOL,
         vs_k1_highest_same_groups=float((got - k1_out)[same].abs().max()),
         vs_k1_tol=json.dumps(K3_VS_K1), joints_with_edge_groups=edge,
-        vs_k1_highest_all=k1_err,
-        launches=json.dumps(launches),
+        vs_k1_highest_all=k1_err, tf32_1pass_cublas_vs_kernel=one_pass,
+        launches=json.dumps(launches), groups_per_block=per_block,
+        grid=min(-(-groups // per_block), blocks * sms), threads=threads,
+        smem_bytes=smem, blocks_per_sm=blocks,
+        kernel_device_ms=round(kernel_device_ms, 5),
+        ptxas=json.dumps([ln.strip() for ln in k3.KERNEL.build_log
+                          .splitlines() if 'entry function' in ln
+                          or 'registers' in ln or 'spill' in ln]),
         ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-        bound_ms=round(bound, 4), bound_by=bound_by)
+        bound_ms=round(bound, 4), bound_by=bound_by,
+        cuda_core_bound_ms=round(cuda_core_bound, 4),
+        bound_note='products_as_3_tf32_passes')
     if not err <= K3_TOL:
         raise AssertionError(f'K3 differs from its plain version by {err}')
     if not k1_ok:

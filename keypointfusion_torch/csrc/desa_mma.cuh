@@ -1,8 +1,10 @@
 // Helpers of both K1 kernels (csrc/desa_dense.cu, 'highest';
-// csrc/desa_dense_serving.cu, 'default'): tensor-core products, copies,
-// and the one copy of the ball rule, d2 and the group selection, for a
-// tile of joints (d2 for several joints per pass over the support; the
-// selection by any warp of a block, so all warps select at once).
+// csrc/desa_dense_serving.cu, 'default') and of K3
+// (csrc/grouped_mlp_pool.cu: the TF32 split, ldmatrix and the copies):
+// tensor-core products, copies, and the one copy of the ball rule, d2
+// and the group selection, for a tile of joints (d2 for several joints
+// per pass over the support; the selection by any warp of a block, so all
+// warps select at once).
 //
 // mma.sync m16n8k16 with bfloat16 operands and float32 sums; fragments as
 // the PTX ISA lays them out, with g = lane / 4 and t = lane % 4:

@@ -17,16 +17,21 @@ module through it: d2, per radius `ball_query_group`, `group_features`,
 the three folded layers and K3, then relu([out_0|out_1|out_2|node] Wfu +
 bfu) as one torch.matmul, as the JAX function leaves it to XLA. The JAX
 package has no model path through K3 (K1 replaced it); this is its only
-entry point. The kernel is csrc/grouped_mlp_pool.cu.
+entry point. The kernel is csrc/grouped_mlp_pool.cu: each product as
+three TF32 tensor-core products with float32 sums, the weights split into
+TF32 hi and lo once per block; `grouped_mlp_pool_emulated` runs that
+arithmetic on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from keypointfusion_torch.kernels.build import CudaKernel, check_tensor
+from keypointfusion_torch.kernels.desa_dense import _mm_tf32
 from keypointfusion_torch.models.desa import DESA, fold_conv_bn
 from keypointfusion_torch.ops.ball_query import (
     ball_query_group, group_features,
@@ -36,7 +41,9 @@ from keypointfusion_torch.ops.pairwise import pairwise_sqdist
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel('grouped_mlp_pool', 'grouped_mlp_pool.cu',
                     'kpf_grouped_mlp_pool', [_P] * 10 + [_I] * 3 + [_P])
-CHANNELS = 128           # the kernel's block is one thread per channel
+INFO_ARGTYPES = [_P] * 4             # kpf_grouped_mlp_pool_info
+CHANNELS = 128           # the kernel's products are 128 x 128
+WARP_ROWS = 16           # rows of a group per warp: the kernel pads to it
 
 
 def grouped_mlp_pool_plain(rel_xyz, grouped_feat, node_feat, wl, bl, wf, bf,
@@ -55,6 +62,61 @@ def grouped_mlp_pool_plain(rel_xyz, grouped_feat, node_feat, wl, bl, wf, bf,
     keep[..., 0] = True
     return torch.where(keep[..., None], h,
                        torch.full_like(h, -float('inf'))).amax(dim=2)
+
+
+def grouped_mlp_pool_emulated(rel_xyz, grouped_feat, node_feat, wl, bl, wf,
+                              bf, w2, b2, tf32_passes=3,
+                              rows: int = WARP_ROWS):
+    """The kernel's arithmetic in plain PyTorch, for the CPU tests: each
+    group's slots padded with zero rows to a multiple of `rows` (the
+    kernel's warp tile), both products from TF32 operands with float32
+    sums (`tf32_passes` 3, the kernel's; 1, a control that drops the
+    split; None, float32 products), and the max taken from 0 over the kept
+    slots, where padded rows and slots outside the ball count as 0. Not
+    bit for bit: the kernel adds each k-step's three products to its sum
+    in turn."""
+    mm = torch.matmul if tf32_passes is None else \
+        functools.partial(_mm_tf32, passes=tf32_passes)
+    rel, grouped = rel_xyz.float(), grouped_feat.float()
+    s = rel.shape[2]
+    pad = -s % rows
+    rel = torch.nn.functional.pad(rel, (0, 0, 0, pad))
+    grouped = torch.nn.functional.pad(grouped, (0, 0, 0, pad))
+    loc = rel @ wl + bl
+    feat = mm(grouped - node_feat.float()[:, :, None], wf) + bf
+    h = torch.relu(loc + feat)
+    h = torch.relu(mm(h, w2) + b2)
+    return masked_max_from_zero(h, rel, s)
+
+
+def masked_max_from_zero(h, rel, s: int):
+    """The max of h [B,J,S',C] (every value >= 0) over the slots t < s
+    with |rel_t|^2 < 1 or t = 0, the others counted as 0, as the kernel
+    takes it; equal bit for bit to the max over the kept slots alone,
+    since slot 0 is kept and no value is below 0."""
+    d2 = rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1] \
+        + rel[..., 2] * rel[..., 2]
+    slot = torch.arange(rel.shape[2], device=rel.device)
+    keep = ((d2 < 1.0) | (slot == 0)) & (slot < s)
+    return torch.where(keep[..., None], h, torch.zeros_like(h)).amax(dim=2)
+
+
+def kernel_info(library=None):
+    """(groups per block and step, dynamic shared memory bytes per block,
+    blocks that fit on one SM, threads per block) of the K3 kernel build
+    (or of `library`, another build of its source), as it and the CUDA
+    runtime report them."""
+    if library is None:
+        KERNEL.load()
+        library = KERNEL.library
+    fn = getattr(ctypes.CDLL(str(library)), KERNEL.symbol + '_info')
+    fn.argtypes = INFO_ARGTYPES
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(4)]
+    rc = fn(*(ctypes.addressof(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f'{KERNEL.name} info failed with cudaError {rc}')
+    return tuple(v.value for v in vals)
 
 
 def grouped_mlp_pool(rel_xyz, grouped_feat, node_feat, wl, bl, wf, bf, w2,
@@ -79,6 +141,10 @@ def grouped_mlp_pool(rel_xyz, grouped_feat, node_feat, wl, bl, wf, bf, w2,
                            (wf, 'wf', (c, c)), (bf, 'bf', (c,)),
                            (w2, 'w2', (c, c)), (b2, 'b2', (c,))):
         check_tensor(t, name, shape, dev)
+        if name in ('grouped_feat', 'node_feat', 'wf', 'w2') \
+                and t.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned (the kernel '
+                             f'copies 16 bytes at a time)')
     out = torch.empty((b, j, c), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

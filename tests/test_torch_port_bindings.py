@@ -5,7 +5,8 @@ see a C signature: a binding with one argument too many or of the wrong
 kind fails at the first launch there. This reads each `extern "C"` entry
 point from its source under keypointfusion_torch/csrc/ and holds the
 binding's argtypes to it (the kernels', K1 'default''s groups-only entry
-point's, both K1 kernels' and both K2 kernels' info entry points'), kind
+point's, the info entry points of both K1 kernels, both K2 kernels and
+K3), kind
 by kind: a pointer or a stream is a c_void_p, a float a c_float, an int a
 c_int.
 """
@@ -30,6 +31,9 @@ for _m, _k in ((k1, k1.KERNEL), (k1, k1.SERVING_KERNEL), (k2, k2.KERNEL),
                (k2, k2.SERVING_KERNEL)):
     BINDINGS[_k.name + '_info'] = (_k.source, _k.symbol + '_info',
                                    _m.INFO_ARGTYPES)
+BINDINGS[k3.KERNEL.name + '_info'] = (k3.KERNEL.source,
+                                      k3.KERNEL.symbol + '_info',
+                                      k3.INFO_ARGTYPES)
 
 
 def c_parameter_kinds(source: str, symbol: str):

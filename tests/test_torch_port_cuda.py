@@ -39,7 +39,14 @@ Tolerances:
     inside 1e-3. Each case records its errors (`record_property`; keep
     them with --junitxml=FILE -o junit_family=xunit1). The kernel's
     groups equal the plain ball query's slot by slot.
-  * K3 (grouped MLP pool): 1e-4, as K1.
+  * K3 (grouped MLP pool): 1e-4, as K1: the kernel's three TF32 products
+    per product against float32 products (one TF32 product lies some 0.01
+    away; tests/test_torch_port_k3.py). The direct cases (K3_CASES): S 64,
+    17, 1 and 130 (rows padded to a warp's 16, a group longer than a
+    block's 64-row step), group counts that leave a block's pair half
+    empty (B=1, J=21; B=3), more groups than the grid has blocks, and a
+    group whose every slot but 0 lies outside the ball; rel uniform in
+    [-1.2, 1.2] everywhere, so slots fall on both sides of the mask.
 """
 
 import numpy as np
@@ -359,4 +366,52 @@ def test_grouped_mlp_pool_kernel_matches_plain_on_card(cuda_device):
         got = k3.desa_apply_inference(module, *args)
         want = k3.desa_apply_inference(module, *args, use_kernel=False)
     assert k3.KERNEL.launches - before == 3
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# name -> (B, J, S) of a direct K3 call
+K3_CASES = {'s64': (2, 21, 64), 's17': (2, 21, 17), 's1': (2, 21, 1),
+            's130': (2, 5, 130), 'b1_j21': (1, 21, 64), 'b3': (3, 21, 64),
+            'more_groups_than_blocks': (16, 21, 64),
+            'empty_ball': (1, 3, 64)}
+
+
+def k3_case(b, j, s, empty_ball=False, seed=0):
+    """K3's inputs as numpy arrays: rel uniform in [-1.2, 1.2], features
+    and weights from a seed (the weights' scales of
+    tests/test_torch_port_k3.py); with empty_ball every slot but 0 of
+    every group lies outside the ball."""
+    rng = np.random.RandomState(seed)
+    c = 128
+    rel = rng.uniform(-1.2, 1.2, (b, j, s, 3))
+    if empty_ball:
+        rel[:, :, 1:, 0] = rng.choice([-1, 1], (b, j, s - 1)) * \
+            rng.uniform(1.01, 1.2, (b, j, s - 1))
+    grouped = rng.randn(b, j, s, c)
+    node = rng.randn(b, j, c)
+    w = [rng.randn(*shape) * sd for shape, sd in
+         (((3, c), 0.5), ((c,), 0.1), ((c, c), 0.1), ((c,), 0.1),
+          ((c, c), 0.1), ((c,), 0.1))]
+    return [np.ascontiguousarray(x, dtype=np.float32)
+            for x in [rel, grouped, node] + w]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(K3_CASES))
+def test_grouped_mlp_pool_direct_on_card(cuda_device, case):
+    """K3's entry point against its plain version, one launch a call."""
+    args = [torch.from_numpy(x).to(cuda_device) for x in
+            k3_case(*K3_CASES[case], empty_ball=case == 'empty_ball')]
+    rel = args[0]
+    keep = (rel * rel).sum(-1) < 1
+    if case == 'empty_ball':
+        assert not bool(keep[..., 1:].any())
+    elif K3_CASES[case][2] > 1:
+        assert bool(keep.any()) and bool((~keep[..., 1:]).any())
+    before = k3.KERNEL.launches
+    got = k3.grouped_mlp_pool(*args)
+    assert k3.KERNEL.launches - before == 1
+    want = k3.grouped_mlp_pool_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
