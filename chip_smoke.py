@@ -13,9 +13,12 @@ set to 0 just before and read just after: the float32 and the bfloat16
 streaming engine, each answering 4 requests of 64 full 480x640 RGB-D
 frames (the bfloat16 line gives how many pixels K2 'default' selects per
 point on one request's data), and K3's own entry point,
-desa_apply_inference. Weights are random, drawn from a seed. Every phase
-prints one line; then a JSON line describing each kernel, the card's name
-and power limit as nvidia-smi reports them, and last {"ok": true,
+desa_apply_inference; and the train step in float32 and 'mixed'
+(check_train: one step on the card against the CPU, 13 steps at batch
+64 timed, no kernel launched in them, then an eval step through K1 and
+K2). Weights are random, drawn from a seed. Every phase prints one
+line; then a JSON line describing each kernel, the card's name and power
+limit as nvidia-smi reports them, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
 device it exits 1 and prints no result.
 
@@ -70,6 +73,43 @@ K1_SERVING_TOL = 1e-3
 # operands rounded to TF32), and the check shows the card's TF32 outside
 JOINT_TERM_TOL = 1e-5
 FORWARD_TOL = 1e-4   # of each output's scale (at least 1)
+TRAIN_LR = 1e-3      # the card-against-CPU step: SGD with momentum 0.9
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 10
+# the card's train step against the port's on the CPU, batch 2: each
+# parameter within max(param_rel * its scale, lr_floor learning rates)
+# (train-mode BatchNorm turns float32 rounding upstream into gradient noise
+# of the gradient's own size in the first layers); each running statistic
+# within stat_rel of its scale (a point at a ball's edge moves DESA's batch
+# statistics by ~1e-3); the loss within loss_rel of itself. Those limits
+# pass a step that skipped its update, so three lines hold the update
+# itself, each an L2 norm over every tensor at once: 'update', the card's
+# after - before against the CPU's, within update_rel; 'own_update', the
+# card's after - before against -lr times its own gradient (SGD's first
+# step), within own_update_rel; 'stat_change', the running statistics'
+# change against the CPU's, within stat_change_rel. check_train shows that
+# a skipped, halved or doubled update and statistics update fail each line
+# held. Measured on an H100 (700 W), float32: loss 1.3e-6, parameters 0.016
+# and statistics 0.0024 of their limits, update 0.0099, statistics' change
+# 7.7e-6 (the CPU's step with and without oneDNN: update 0.029). 'mixed':
+# loss 0.0198, the worst parameter 0.35 and statistic 0.34 of their limits,
+# statistics' change 0.027; the update lies 0.83 from the CPU's, and the
+# CPU's with and without oneDNN 0.75 apart: the backbones' bfloat16
+# roundings, amplified by train-mode BatchNorm, leave no two
+# implementations' gradients alike at batch 2 (JAX's own 'mixed' forward
+# lies 0.16-0.66 from its float32 one on the block outputs,
+# tests/test_torch_port_train_forward.py), so 'mixed' holds no 'update'
+# line; its other limits are about 3x the measured, its floor 10 lr
+TRAIN_TOL = {'float32': {'param_rel': 1e-4, 'lr_floor': 3,
+                         'stat_rel': 1e-2, 'loss_rel': 1e-4,
+                         'update_rel': 0.1, 'own_update_rel': 1e-3,
+                         'stat_change_rel': 0.01},
+             'mixed': {'param_rel': 0.04, 'lr_floor': 10, 'stat_rel': 0.5,
+                       'loss_rel': 0.06, 'update_rel': None,
+                       'own_update_rel': 1e-3, 'stat_change_rel': 0.1}}
+# the controls: the card's step with its update and its statistics' change
+# scaled by these factors must fail every update line held
+TRAIN_CONTROLS = (0.0, 0.5, 2.0)
 SERVING_TOL = {'joint_xyz_mm': 1e-4 * 125.0, 'joint_uvd': 1e-4, 'M': 0.0}
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
            'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
@@ -888,6 +928,200 @@ def check_serving(dev, kernels, card, dtype):
     return launches
 
 
+def state64(model):
+    """The model's floating-point state, float64 on the CPU."""
+    return {k: v.detach().cpu().double()
+            for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def train_step_errors(got, want, start, grads, lr, tol):
+    """The state `got` after an SGD step from `start` against `want`, the
+    CPU's step from it (state64 dicts; `grads`, the parameters' names to
+    the gradients `got` stepped with, zeros where none): 'param': (the
+    worst parameter over max(tol['param_rel'] * its scale, tol['lr_floor']
+    * lr), its name); 'stat': (the worst running statistic over
+    tol['stat_rel'] of its scale, at least 1, its name); 'update':
+    |(got - start) - (want - start)| / |want - start| over every parameter
+    at once (L2 norms); 'own_update': |(got - start) + lr * grads| /
+    |lr * grads|; 'stat_change': as 'update' over the statistics."""
+    worst = {True: (0.0, ''), False: (0.0, '')}
+    sums = dict.fromkeys(('update', 'own_update', 'stat_change'), (0.0, 0.0))
+
+    def add(line, diff, ref):
+        sums[line] = (sums[line][0] + float(diff.square().sum()),
+                      sums[line][1] + float(ref.square().sum()))
+
+    for name, y in want.items():
+        x, is_param = got[name], name in grads
+        e, s = float((x - y).abs().max()), float(y.abs().max())
+        limit = (max(tol['param_rel'] * s, tol['lr_floor'] * lr) if is_param
+                 else tol['stat_rel'] * max(s, 1.0))
+        worst[is_param] = max(worst[is_param], (e / limit, name))
+        add('update' if is_param else 'stat_change', x - y, y - start[name])
+        if is_param:
+            step = lr * grads[name]
+            add('own_update', x - start[name] + step, step)
+    return {'param': worst[True], 'stat': worst[False],
+            **{k: (a / b) ** 0.5 for k, (a, b) in sums.items()}}
+
+
+def train_step_failures(got, want, start, grads, lr, tol):
+    """The lines of train_step_errors that `got` fails, and each control
+    (`got`'s step scaled by a TRAIN_CONTROLS factor) that passes an update
+    line held (tol[line + '_rel'] not None): no failure when the step
+    agrees and every control is caught. Returns (failures, errors,
+    {factor: {line: error}} of the controls)."""
+    errors = train_step_errors(got, want, start, grads, lr, tol)
+    held = [k for k in ('update', 'own_update', 'stat_change')
+            if tol[f'{k}_rel'] is not None]
+    failures = [k for k in held if not errors[k] <= tol[f'{k}_rel']]
+    failures += [k for k in ('param', 'stat') if not errors[k][0] <= 1]
+    controls = {}
+    for f in TRAIN_CONTROLS:
+        scaled = {k: start[k] + f * (x - start[k]) for k, x in got.items()}
+        e = train_step_errors(scaled, want, start, grads, lr, tol)
+        controls[f] = {k: e[k] for k in held}
+        failures += [f'control {f}: {k} passed' for k in held
+                     if e[k] <= tol[f'{k}_rel']]
+    return failures, errors, controls
+
+
+def step_grads(model):
+    """The gradients the model's last step took, float64 on the CPU,
+    zeros where none reached."""
+    import torch
+    return {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+            .detach().cpu().double() for k, p in model.named_parameters()}
+
+
+def check_train(dev, kernels, card, compute_dtype):
+    """A main path: the train step of KPFusion-resnet-18 in
+    `compute_dtype` ('float32', TF32 off, or 'mixed': bfloat16 backbones).
+    1. One SGD-momentum step at batch 2 with 256 points, dropout 0, on the
+       card and on the CPU (the port's own step; this machine has no JAX)
+       from the same weights: the loss, every parameter, every running
+       statistic, the update over all parameters and the statistics'
+       change within TRAIN_TOL, and the controls (TRAIN_CONTROLS) outside
+       it.
+    2. Batch 64, 1024 points, full width, AdamW, dropout 0.1 from a CUDA
+       generator: TRAIN_WARMUP steps, then TRAIN_STEPS timed by CUDA
+       events; peak memory; every loss finite. The launch counters, set to
+       0 before the steps, read 0 after them (the kernels are eval-only).
+    3. .eval() and one eval step on the trained weights, counters set to 0
+       just before: K2 once and K1 once per block, within FORWARD_TOL of
+       the plain path."""
+    import torch
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.data.synthetic import synthetic_batch
+    from keypointfusion_torch.training.train_step import (
+        batch_to_device, create_train_state, make_eval_step,
+        make_train_step,
+    )
+
+    tol = TRAIN_TOL[compute_dtype]
+    cfg = Config(compute_dtype=compute_dtype, opt='sgd', lr=TRAIN_LR)
+    small = synthetic_batch(batch_size=2, point_num=256, seed=42)
+    stepped = []
+    for where in ('cpu', dev):
+        b = batch_to_device(small, where)
+        state = create_train_state(cfg, b, device=where, seed=0,
+                                   dropout=0.0)
+        start = state64(state.model)
+        with torch.backends.mkldnn.flags(enabled=False):
+            state, metrics = make_train_step(cfg)(state, b, None, 0)
+        stepped.append((state.model, float(metrics['loss']), start))
+    (cpu_model, cpu_loss, start), (card_model, card_loss, card_start) = \
+        stepped
+    if any(not torch.equal(card_start[k], t) for k, t in start.items()):
+        raise AssertionError(f'train {compute_dtype}: the card and the CPU '
+                             f'start from different weights')
+    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    failures, errors, controls = train_step_failures(
+        state64(card_model), state64(cpu_model), start,
+        step_grads(card_model), TRAIN_LR, tol)
+    if not loss_err <= tol['loss_rel']:
+        failures.append('loss')
+    if failures:
+        raise AssertionError(
+            f'train {compute_dtype}: the card step differs from the CPU '
+            f'step: {failures}; loss {loss_err}, {errors}, controls '
+            f'{controls}; tolerance {tol}')
+    del stepped, cpu_model, card_model, start, card_start
+
+    cfg = Config(compute_dtype=compute_dtype)
+    batch = batch_to_device(
+        synthetic_batch(batch_size=BATCH, point_num=1024, seed=2), dev)
+    state = create_train_state(cfg, batch, device=dev, seed=0)
+    step = make_train_step(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kernels)
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step(state, batch, gen, 0)
+        losses.append(metrics['loss'])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, batch, gen, 0)
+        losses.append(metrics['loss'])
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_launches = counts(kernels)
+    losses = [float(x) for x in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'train {compute_dtype}: losses {losses}')
+    if any(step_launches.values()):
+        raise AssertionError(f'train {compute_dtype}: the train steps '
+                             f'launched {step_launches}')
+
+    evaluate = make_eval_step(cfg)
+    reset(kernels)
+    got = evaluate(state, batch)
+    eval_launches = counts(kernels)
+    want_launches = dict.fromkeys(kernels, 0)
+    want_launches.update(pixel_sampler=1, desa_dense=2)
+    if eval_launches != want_launches:
+        raise AssertionError(f'eval after training launched '
+                             f'{eval_launches}, expected {want_launches}')
+    state.model.use_kernels = False
+    want = evaluate(state, batch)
+    state.model.use_kernels = True
+    errs = {}
+    for name, g, w in zip(OUTPUTS, got[0] + got[1], want[0] + want[1]):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f'eval after training: {name} not finite')
+        errs[name] = float((g - w).abs().max())
+        if not errs[name] <= FORWARD_TOL * max(1.0, float(w.abs().max())):
+            raise AssertionError(f'eval after training {name}: kernels '
+                                 f'differ from the plain path by '
+                                 f'{errs[name]}')
+    log('train', dtype=compute_dtype, batch=BATCH, points=1024,
+        card_vs_cpu=json.dumps({
+            'batch': 2, 'lr': TRAIN_LR, 'loss_rel': loss_err,
+            'worst_param_over_tol': errors['param'][0],
+            'param': errors['param'][1],
+            'worst_stat_over_tol': errors['stat'][0],
+            'stat': errors['stat'][1], 'update_rel': errors['update'],
+            'own_update_rel': errors['own_update'],
+            'stat_change_rel': errors['stat_change'],
+            'controls': {str(f): c for f, c in controls.items()},
+            'tol': tol}),
+        ms_per_step=round(ms, 3), timed_steps=TRAIN_STEPS,
+        peak_gib=round(peak_gib, 3),
+        losses=json.dumps([round(x, 5) for x in losses]),
+        step_launches=json.dumps(step_launches),
+        eval_launches=json.dumps(eval_launches),
+        eval_max_abs_err=max(errs.values()), card=json.dumps(card))
+    del state
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -936,6 +1170,8 @@ def main():
     for name in ('pixel_sampler_serving', 'desa_dense_serving'):
         launches[name] = launches_bf[name]
     launches['grouped_mlp_pool'] = stats['grouped_mlp_pool'].pop('launches')
+    for compute_dtype in ('float32', 'mixed'):
+        check_train(dev, kernels, card, compute_dtype)
 
     replaces = {'pixel_sampler': 'pixel_sampler_pallas.py:212',
                 'desa_dense': 'desa_dense_pallas.py:257',

@@ -1,9 +1,9 @@
 """Configuration for the PyTorch port of KeypointFusion.
 
-The fields the serving path reads, with the names and defaults of the JAX
-package's `Config` (keypointfusion_tpu/config.py), which mirror the
-reference config singleton. The port keeps its own copy so that it imports
-nothing from the JAX package.
+The fields the serving path and the train step read, with the names and
+defaults of the JAX package's `Config` (keypointfusion_tpu/config.py),
+which mirror the reference config singleton. The port keeps its own copy
+so that it imports nothing from the JAX package.
 """
 
 import dataclasses
@@ -14,6 +14,20 @@ JOINT = {
     'nyu': 14,
     'dexycb': 21,
     'ho3d': 21,
+}
+
+STEP = {
+    'STB': 20,
+    'nyu': 25,
+    'dexycb': 10,
+    'ho3d': 19,
+}
+
+EPOCH = {
+    'STB': 30,
+    'nyu': 30,
+    'dexycb': 15,
+    'ho3d': 24,
 }
 
 CUBE = {
@@ -29,12 +43,35 @@ class Config:
     net: str = 'KPFusion-resnet-18'   # only resnet-18 is ported so far
     dataset: str = 'dexycb'           # ['nyu', 'STB', 'dexycb', 'ho3d']
     point_num: int = 1024
+
+    batch_size: int = 64
     input_size: int = 128
+    loss_type: str = 'L1Loss'         # ['L1Loss', 'Mse']
+
+    lr: float = 8e-4
+    opt: str = 'adamw'                # ['sgd', 'adam', 'adamw']
+    scheduler: str = 'step'           # ['auto', 'step', 'constant']
+    step_gamma: float = 0.1
+    coord_weight: float = 100.
+    deconv_weight: float = 1.
+    spatial_weight: Tuple[float, ...] = (10., 10., 10.)
+    spatial_epoch: Tuple[int, ...] = (24, 24, 24)
+
+    feature_type: Tuple[str, ...] = ('weight_offset',)
     feature_para: Tuple[float, ...] = (0.8,)
+
+    # per-output supervision targets: 1 = dense pixel stage (backbones),
+    # 2/3 = 3D / 2D-refined KFAM joint stages
+    stage_type: Tuple[int, ...] = (1, 1, 2, 3, 2, 3)
+
     # the model's compute dtype, build_kpfusion's default: 'float32' |
-    # 'bfloat16'. StreamingEngine takes its own (bfloat16), as JAX's does.
+    # 'bfloat16' | 'mixed' (training: bfloat16 backbones, float32 head).
+    # StreamingEngine takes its own (bfloat16), as JAX's does.
     compute_dtype: str = 'float32'
     seed: int = 23455
+    # recompute the forward in the train step's backward
+    # (torch.utils.checkpoint): activation memory for compute
+    remat: bool = False
 
     @property
     def joint_num(self) -> int:
@@ -43,3 +80,11 @@ class Config:
     @property
     def cube_size(self) -> List[int]:
         return CUBE[self.dataset]
+
+    @property
+    def max_epoch(self) -> int:
+        return EPOCH[self.dataset]
+
+    @property
+    def step_size(self) -> int:
+        return STEP[self.dataset]

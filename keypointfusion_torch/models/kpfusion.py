@@ -1,5 +1,5 @@
-"""KPFusion: the dual-backbone RGB-D keypoint fusion model, eval path
-(port of keypointfusion_tpu/models/kpfusion.py).
+"""KPFusion: the dual-backbone RGB-D keypoint fusion model (port of
+keypointfusion_tpu/models/kpfusion.py).
 
 Outputs follow the reference's `result` list,
 [img_offset, img_offset_rgb, b1_3d, b1_2d, b2_3d, b2_2d], aligned with the
@@ -19,6 +19,23 @@ through kernels/desa_dense.py (K1, once per block). On CUDA tensors those
 launch the CUDA kernels; on CPU tensors they run their plain versions.
 False runs the kernels' plain versions on any device; that is how
 chip_smoke.py compares the two on the card.
+
+Train mode (`.train()`) runs the JAX module's train path: BatchNorm with
+batch statistics, the transformers' dropout at `dropout` with masks from
+the `generator` passed to forward, DESA's gather form, and no kernel (K1
+and K2 have no backward, as the Pallas kernels have none). The decoded
+joints and the dense map's weight channels are detached, as JAX stops
+their gradients. The sampling is the plain gather-sum
+(geometry/pcl.py:img_to_pcl_index then sample_pixel_features) on float32
+maps: its backward is the gather's own scatter-add into the maps, and the
+closeness is detached, so no gradient reaches it or the index. With
+bfloat16 backbones ('mixed'), JAX samples its maps with one bfloat16
+pass of the densified weights (precision 'default'), which rounds the
+closeness to bfloat16; the port keeps the float32 closeness. Both 'mixed'
+runs lie about as far from the float32 model (b1_3d 0.289 for the port,
+0.163 for JAX; b2_3d 0.475 and 0.562 on the test batch of
+tests/test_torch_port_train_forward.py): train-mode BatchNorm amplifies
+the backbones' bfloat16 roundings far past this one.
 """
 
 from __future__ import annotations
@@ -31,6 +48,9 @@ from torch import nn
 from keypointfusion_torch.config import Config
 from keypointfusion_torch.geometry.camera import CropFrame, uvd_nl_to_xyz_nl
 from keypointfusion_torch.geometry.grid import img_uvd_points
+from keypointfusion_torch.geometry.pcl import (
+    img_to_pcl_index, sample_pixel_features,
+)
 from keypointfusion_torch.kernels.pixel_sampler import (
     sample_pixel_features_fused, sample_pixel_features_plain,
 )
@@ -47,7 +67,8 @@ class KPFusion(nn.Module):
                  num_stages: int = 2, dim: int = 128,
                  use_kernels: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 backbone_dtype: Optional[torch.dtype] = None):
+                 backbone_dtype: Optional[torch.dtype] = None,
+                 dropout: float = 0.1):
         super().__init__()
         if 'resnet' not in net:
             raise NotImplementedError(f'{net}: only ResNet backbones are '
@@ -66,15 +87,17 @@ class KPFusion(nn.Module):
         self.num_stages = num_stages
         for i in range(num_stages):
             setattr(self, f'block{i + 1}',
-                    set_compute_dtype(FusionBlock(j, dim), dtype))
+                    set_compute_dtype(FusionBlock(j, dim, dropout=dropout),
+                                      dtype))
 
     def forward(self, rgb, depth, pcl, frame: CropFrame,
-                kernel: float = 0.8):
+                kernel: float = 0.8,
+                generator: Optional[torch.Generator] = None):
         """rgb [B,S,S,3], depth [B,S,S,1] (normalized crop, background 1),
-        pcl [B,N,3] normalized xyz. Returns (results, spatial_weights)."""
-        if self.training:
-            raise NotImplementedError('KPFusion train mode is not ported; '
-                                      'call .eval()')
+        pcl [B,N,3] normalized xyz; generator (on the inputs' device)
+        draws the dropout masks in train mode. Returns (results,
+        spatial_weights)."""
+        train = self.training
         j = self.joint_num
         dt, bb = self.dtype, self.backbone_dtype
         img_offset, img_feat = (
@@ -83,8 +106,9 @@ class KPFusion(nn.Module):
             t.to(dt) for t in self.backbone_rgb(rgb.to(bb)))
         b, h = img_feat.shape[0], img_feat.shape[1]
 
-        joint_uvd = offset_to_joint_weight(img_offset, depth, kernel)
-        weight_map = img_offset[..., 4 * j:5 * j]
+        joint_uvd = offset_to_joint_weight(img_offset, depth,
+                                           kernel).detach()
+        weight_map = img_offset[..., 4 * j:5 * j].detach()
         img_down = resize_nearest_torch(depth, h)
         joint_xyz = uvd_nl_to_xyz_nl(joint_uvd, frame)
 
@@ -92,12 +116,17 @@ class KPFusion(nn.Module):
         # between stages)
         maps = torch.cat([img_feat, img_feat_rgb, weight_map], dim=-1)
         flat = maps.reshape(b, h * h, -1)
-        img_xyz = uvd_nl_to_xyz_nl(img_uvd_points(img_down), frame)
-        sampler = sample_pixel_features_fused if self.use_kernels \
-            else sample_pixel_features_plain
-        sampled = sampler(pcl.contiguous(), img_xyz, flat, k=4,
-                          mode='highest' if dt == torch.float32
-                          else 'default')
+        if train:
+            closeness, index = img_to_pcl_index(pcl, img_down, frame,
+                                                select_num=4)
+            sampled = sample_pixel_features(flat, closeness.detach(), index)
+        else:
+            img_xyz = uvd_nl_to_xyz_nl(img_uvd_points(img_down), frame)
+            sampler = sample_pixel_features_fused if self.use_kernels \
+                else sample_pixel_features_plain
+            sampled = sampler(pcl.contiguous(), img_xyz, flat, k=4,
+                              mode='highest' if dt == torch.float32
+                              else 'default')
 
         results = [img_offset, img_offset_rgb]
         spatial_weights = []
@@ -106,25 +135,38 @@ class KPFusion(nn.Module):
             refined_3d, refined_2d, updated, sw = getattr(
                 self, f'block{i + 1}')(
                 img_feat, img_feat_rgb, pcl, joint_xyz, sampled, updated,
-                frame, img_down, kernel, self.use_kernels)
+                frame, img_down, kernel, self.use_kernels, generator)
             results += [refined_3d, refined_2d]
             spatial_weights.append(sw)
             joint_xyz = refined_2d
         return tuple(results), tuple(spatial_weights)
 
 
+def model_dtypes(compute_dtype: str):
+    """Config.compute_dtype -> (head dtype, backbone dtype): 'mixed' is
+    bfloat16 backbones under a float32 head, as in the JAX train step."""
+    if compute_dtype == 'mixed':
+        return torch.float32, torch.bfloat16
+    dtype = getattr(torch, compute_dtype)
+    return dtype, dtype
+
+
 def build_kpfusion(cfg: Config = Config(), device=None, seed: int = 0,
                    use_kernels: bool = True,
-                   dtype: Optional[torch.dtype] = None) -> KPFusion:
+                   dtype: Optional[torch.dtype] = None,
+                   dropout: float = 0.1) -> KPFusion:
     """The model factory: a KPFusion in eval mode with weights drawn from
     `seed` (the process's global RNG is left as it was), on the CUDA card
     unless `device` names another. `dtype` sets the whole model's compute
     dtype; None takes cfg.compute_dtype."""
     device = resolve_device(device)
     if dtype is None:
-        dtype = getattr(torch, cfg.compute_dtype)
+        dtype, backbone_dtype = model_dtypes(cfg.compute_dtype)
+    else:
+        backbone_dtype = dtype
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = KPFusion(cfg.net, cfg.joint_num, use_kernels=use_kernels,
-                         dtype=dtype)
+                         dtype=dtype, backbone_dtype=backbone_dtype,
+                         dropout=dropout)
     return model.eval().to(device)

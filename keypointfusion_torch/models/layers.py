@@ -91,5 +91,6 @@ class LayerNorm(nn.LayerNorm):
     compute_dtype = torch.float32
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(self.compute_dtype)
+        return F.layer_norm(x.to(self.weight.dtype), self.normalized_shape,
+                            self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)

@@ -7,7 +7,11 @@ statistics and eps 1e-5, in float32 whatever the input's dtype, and
 returns the layer's compute dtype (models/layers.py): torch's batch_norm
 takes a bfloat16 input with float32 parameters, computes in float32 and
 rounds once, as the JAX layer does, without a cast pass on either side.
-Train mode is torch's own (the tests set running statistics with it).
+Train mode is torch's own, which TorchBatchNorm copies: it normalizes with
+the biased batch variance and updates the running variance with the
+unbiased one, momentum 0.1 (flax's 0.9, the weight of the old value); the
+cast to float32 is differentiable, so the gradient reaches a bfloat16
+input.
 """
 
 import torch

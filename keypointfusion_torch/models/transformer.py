@@ -7,11 +7,20 @@ state_dict loads. Attention is written out: 21-token sequences, 4 heads.
 Dense layers, LayerNorms, embeddings and the attention follow the compute
 dtype as flax's nn.Dense, nn.LayerNorm, nn.Embed and
 nn.MultiHeadDotProductAttention do (models/layers.py).
+
+Dropout (rate `dropout`, 0.1 in KPFusion) acts in train mode at the JAX
+modules' sites: on the attention probabilities, on the attention's output,
+after the FFN (the decoder's also after its ReLU) and on the encoder's
+embedding sum. Its masks come from the `generator` the caller passes
+down, never from the global RNG, as flax draws from rngs={'dropout': ...}.
+The attention-probability mask is shared across the batch and the heads,
+as flax's MultiHeadDotProductAttention shares it (broadcast_dropout).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,10 +31,31 @@ from keypointfusion_torch.models.layers import (
 )
 
 
-def attention(q, k, v, heads: int):
+def dropout(x, rate: float, training: bool,
+            generator: Optional[torch.Generator], shape=None):
+    """flax nn.Dropout: in training, each element kept with probability
+    1 - rate and divided by it, else 0; the identity otherwise. The mask
+    has `shape` (x's by default, or one that broadcasts to it) and is
+    drawn from `generator`, on x's device."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout in train mode draws from an explicit '
+                         'torch.Generator; pass generator=')
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape if shape is None else shape,
+                      generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def attention(q, k, v, heads: int, rate: float = 0.0,
+              training: bool = False,
+              generator: Optional[torch.Generator] = None):
     """Multi-head dot-product attention over projected q [B,Lq,C],
     k/v [B,Lk,C], in their dtype: the query is divided by sqrt(C/heads)
-    rounded to that dtype before the product, as flax does."""
+    rounded to that dtype before the product, as flax does. In training
+    the probabilities take dropout at `rate`, one [Lq,Lk] mask for every
+    batch element and head (flax's broadcast_dropout)."""
     b, lq, c = q.shape
     lk = k.shape[1]
     d = c // heads
@@ -34,6 +64,7 @@ def attention(q, k, v, heads: int):
     k = k.reshape(b, lk, heads, d).transpose(1, 2)
     v = v.reshape(b, lk, heads, d).transpose(1, 2)
     w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+    w = dropout(w, rate, training, generator, shape=(1, 1, lq, lk))
     return (w @ v).transpose(1, 2).reshape(b, lq, c)
 
 
@@ -53,13 +84,14 @@ class _DenseLN(nn.Module):
 
 
 class PostLNLayer(nn.Module):
-    """MHA -> LN(x + attn), FFN(exact gelu) -> LN(x + ffn). Eval only:
-    dropout is the identity."""
+    """MHA -> dropout -> LN(x + attn), FFN(exact gelu) -> dropout ->
+    LN(x + ffn)."""
 
     def __init__(self, hidden: int = 128, heads: int = 4,
-                 intermediate: int = 16):
+                 intermediate: int = 16, dropout: float = 0.1):
         super().__init__()
         self.heads = heads
+        self.dropout = dropout
         self.attention = nn.Module()
         self.attention.self = nn.Module()
         for name in ('query', 'key', 'value'):
@@ -71,15 +103,15 @@ class PostLNLayer(nn.Module):
             Linear(hidden, intermediate), 0.02)
         self.output = _DenseLN(intermediate, hidden)
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError('train mode (dropout) is not ported')
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        drop = lambda t: dropout(t, self.dropout, self.training, generator)
         s = self.attention.self
-        a = attention(s.query(x), s.key(x), s.value(x), self.heads)
+        a = attention(s.query(x), s.key(x), s.value(x), self.heads,
+                      self.dropout, self.training, generator)
         out = self.attention.output
-        x = out.LayerNorm(x + out.dense(a))
+        x = out.LayerNorm(x + drop(out.dense(a)))
         h = F.gelu(self.intermediate.dense(x))
-        return self.output.LayerNorm(x + self.output.dense(h))
+        return self.output.LayerNorm(x + drop(self.output.dense(h)))
 
 
 class KeypointEncoder(nn.Module):
@@ -87,22 +119,26 @@ class KeypointEncoder(nn.Module):
     compute_dtype = torch.float32
 
     def __init__(self, hidden: int = 128, heads: int = 4, layers: int = 4,
-                 intermediate: int = 16, img_dim: int = 128):
+                 intermediate: int = 16, img_dim: int = 128,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.position_embeddings = nn.Embedding(512, hidden)
         nn.init.normal_(self.position_embeddings.weight, std=0.02)
         self.img_embedding = _normal_linear(Linear(img_dim, hidden), 0.02)
         self.encoder = nn.Module()
         self.encoder.layer = nn.ModuleList(
-            PostLNLayer(hidden, heads, intermediate) for _ in range(layers))
+            PostLNLayer(hidden, heads, intermediate, dropout)
+            for _ in range(layers))
 
-    def forward(self, img_feats):
+    def forward(self, img_feats, generator: Optional[torch.Generator] = None):
         seq = img_feats.shape[1]
         pos = self.position_embeddings.weight[None, :seq]
         x = self.img_embedding(img_feats) + cast_param(
             self, 'pos', pos, self.compute_dtype)
+        x = dropout(x, self.dropout, self.training, generator)
         for layer in self.encoder.layer:
-            x = layer(x)
+            x = layer(x, generator)
         return x
 
 
@@ -111,14 +147,15 @@ class KPInteraction(nn.Module):
     Returns (sequence [B,J,H], prediction [B,J,out_dim])."""
 
     def __init__(self, hidden: int = 128, img_dim: int = 128,
-                 out_dim: int = 3):
+                 out_dim: int = 3, dropout: float = 0.1):
         super().__init__()
-        self.bert = KeypointEncoder(hidden=hidden, img_dim=img_dim)
+        self.bert = KeypointEncoder(hidden=hidden, img_dim=img_dim,
+                                    dropout=dropout)
         self.cls_head = _normal_linear(Linear(hidden, out_dim), 0.02)
         self.residual = _normal_linear(Linear(img_dim, out_dim), 0.02)
 
-    def forward(self, img_feats):
-        seq = self.bert(img_feats)
+    def forward(self, img_feats, generator: Optional[torch.Generator] = None):
+        seq = self.bert(img_feats, generator)
         return seq, self.cls_head(seq) + self.residual(img_feats)
 
 
@@ -137,25 +174,29 @@ class PackedAttention(nn.Module):
         nn.init.xavier_uniform_(self.out_proj.weight)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, rate: float = 0.0,
+                generator: Optional[torch.Generator] = None):
         dt = self.compute_dtype
         wq, wk, wv = (cast_param(self, f'w{i}', w, dt) for i, w in
                       enumerate(self.in_proj_weight.chunk(3)))
         bq, bk, bv = (cast_param(self, f'b{i}', b, dt) for i, b in
                       enumerate(self.in_proj_bias.chunk(3)))
         a = attention(linear(q, wq, bq, dt), linear(k, wk, bk, dt),
-                      linear(v, wv, bv, dt), self.heads)
+                      linear(v, wv, bv, dt), self.heads, rate, self.training,
+                      generator)
         return self.out_proj(a)
 
 
 class CrossDecoderLayer(nn.Module):
     """Cross-only decoder layer: learned query/key positions added to q, k
-    AND v, post-LN (flax's default eps 1e-6), ReLU FFN. Eval only."""
+    AND v, post-LN (flax's default eps 1e-6), ReLU FFN, dropout after the
+    attention, the ReLU and the FFN."""
     compute_dtype = torch.float32
 
     def __init__(self, hidden: int = 128, heads: int = 4, ffn: int = 128,
-                 joint_num: int = 21):
+                 joint_num: int = 21, dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.self_posembed = nn.Embedding(joint_num, hidden)
         self.cross_posembed = nn.Embedding(joint_num, hidden)
         self.multihead_attn = PackedAttention(hidden, heads)
@@ -167,18 +208,19 @@ class CrossDecoderLayer(nn.Module):
             nn.init.xavier_uniform_(lin.weight)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, query, key):
-        if self.training:
-            raise NotImplementedError('train mode (dropout) is not ported')
+    def forward(self, query, key,
+                generator: Optional[torch.Generator] = None):
+        drop = lambda t: dropout(t, self.dropout, self.training, generator)
         j = query.shape[1]
         dt = self.compute_dtype
         q = query + cast_param(self, 'self_pos',
                                self.self_posembed.weight[None, :j], dt)
         kv = key + cast_param(self, 'cross_pos',
                               self.cross_posembed.weight[None, :j], dt)
-        x = self.norm2(query + self.multihead_attn(q, kv, kv))
-        h = self.linear2(torch.relu(self.linear1(x)))
-        return self.norm3(x + h)
+        a = self.multihead_attn(q, kv, kv, self.dropout, generator)
+        x = self.norm2(query + drop(a))
+        h = self.linear2(drop(torch.relu(self.linear1(x))))
+        return self.norm3(x + drop(h))
 
 
 class CrossDecoder(nn.Module):
@@ -187,11 +229,12 @@ class CrossDecoder(nn.Module):
     last layer is computed. All layers exist so checkpoints load."""
 
     def __init__(self, hidden: int = 128, heads: int = 4, ffn: int = 128,
-                 layers: int = 4, joint_num: int = 21):
+                 layers: int = 4, joint_num: int = 21, dropout: float = 0.1):
         super().__init__()
         self.decoder = nn.ModuleList(
-            CrossDecoderLayer(hidden, heads, ffn, joint_num)
+            CrossDecoderLayer(hidden, heads, ffn, joint_num, dropout)
             for _ in range(layers))
 
-    def forward(self, anchor_feats, img_feats):
-        return self.decoder[-1](anchor_feats, img_feats)
+    def forward(self, anchor_feats, img_feats,
+                generator: Optional[torch.Generator] = None):
+        return self.decoder[-1](anchor_feats, img_feats, generator)

@@ -1,4 +1,4 @@
-"""Dense-map <-> joint codecs of the serving path (port of
+"""Dense-map <-> joint codecs of the serving and training paths (port of
 keypointfusion_tpu/ops/codecs.py). Dense maps are NHWC; the 5J channel
 order is [3J offsets (ch = j*3 + axis), J heatmap, J weight]."""
 
@@ -18,14 +18,41 @@ def _kernel_arr(kernel_size, joint_num, device=None):
     return k[None, :]
 
 
+def _pixel_coords(depth, size: int):
+    """The nearest-resized depth [B,S,S,1] and the pixels' normalized uvd
+    [B,S*S,3]."""
+    b = depth.shape[0]
+    depth_ds = resize_nearest_torch(depth, size)
+    grid = uv_grid(size, depth.device).expand(b, size, size, 2)
+    return depth_ds, torch.cat([grid, depth_ds], dim=-1).reshape(
+        b, size * size, 3)
+
+
+def joint_to_offset(joint, depth, kernel_size, feature_size):
+    """Encode joints [B,J,3] (normalized uvd) to dense unit-offset +
+    heatmap maps [B,fs,fs,4J] over the depth crop [B,H,W,1], with 1e-8
+    inside the sqrt; pixels outside the kernel or on the background are
+    0."""
+    b, j, _ = joint.shape
+    fs = int(feature_size)
+    depth_ds, coords = _pixel_coords(depth, fs)
+    offset = joint[:, None, None, :, :] \
+        - coords.reshape(b, fs, fs, 1, 3)                   # [B,fs,fs,J,3]
+    dist = torch.sqrt(torch.sum(offset ** 2, dim=-1) + 1e-8)
+    offset_norm = offset / dist[..., None]
+    k = _kernel_arr(kernel_size, j, joint.device)[:, None, None, :]
+    heatmap = (k - dist) / k
+    mask = (heatmap >= 0).float() * (depth_ds < 0.99).float()
+    offset_norm = (offset_norm * mask[..., None]).reshape(b, fs, fs, j * 3)
+    return torch.cat([offset_norm, heatmap * mask], dim=-1)
+
+
 def offset_to_joint_weight(offset_map, depth, kernel_size):
     """Decode a predicted 5J map [B,H,W,5J] to joints [B,J,3] via softmax
     weights over the pixels; background pixels get weight -1e8."""
     b, h, w, c = offset_map.shape
     j = c // 5
-    depth_ds = resize_nearest_torch(depth, h)
-    grid = uv_grid(h, offset_map.device).expand(b, h, w, 2)
-    coords = torch.cat([grid, depth_ds], dim=-1).reshape(b, h * w, 3)
+    depth_ds, coords = _pixel_coords(depth, h)
 
     offset_unit = offset_map[..., :3 * j].reshape(b, h * w, j, 3)
     heatmap = offset_map[..., 3 * j:4 * j].reshape(b, h * w, j)
@@ -45,6 +72,25 @@ def offset_to_joint_weight(offset_map, depth, kernel_size):
     # JAX promotes a bfloat16 map's weights to the float32 coordinates
     t_coord = torch.einsum('bmj,bmc->bjc', normal_weight.to(coords.dtype),
                            coords)
+    return t_off + t_coord
+
+
+def offset_to_joint_softmax(offset_map, depth, kernel_size, scale=30.0):
+    """Decode a 4J map [B,H,W,4J] (no weight channel) to joints [B,J,3]
+    through a softmax of the scaled, masked heatmap over the pixels."""
+    b, h, w, c = offset_map.shape
+    j = c // 4
+    depth_ds, coords = _pixel_coords(depth, h)
+    offset_unit = offset_map[..., :3 * j].reshape(b, h * w, j, 3)
+    heatmap = offset_map[..., 3 * j:].reshape(b, h * w, j)
+    mask = (depth_ds.reshape(b, h * w, 1) < 0.99).to(offset_map.dtype)
+    heatmap_masked = heatmap * mask
+    normal_heatmap = torch.softmax(heatmap_masked * scale, dim=1)
+    k = _kernel_arr(kernel_size, j, offset_map.device)[:, None, :]
+    dist = k - heatmap_masked * k
+    wd = (normal_heatmap * dist * mask)[..., None]
+    t_off = torch.sum(wd * offset_unit, dim=1)
+    t_coord = torch.einsum('bmj,bmc->bjc', normal_heatmap, coords)
     return t_off + t_coord
 
 
@@ -77,3 +123,22 @@ def pcl_joint_to_offset(joint, pcl, kernel_size):
     offset_norm = offset_norm * mask[..., None]
     off_flat = offset_norm.permute(0, 2, 1, 3).reshape(b, n, j * 3)
     return torch.cat([off_flat, closeness.permute(0, 2, 1)], dim=-1)
+
+
+def pcl_offset_to_joint_weight(pcl_result, pcl, kernel_size):
+    """Decode per-point 5J predictions [B,N,5J] on a cloud [B,N,3] to
+    joints [B,J,3] through softmax weights over the points; points on the
+    background (z > 0.99) get weight -1e8."""
+    b, n, c = pcl_result.shape
+    j = c // 5
+    offset = pcl_result[..., :3 * j].reshape(b, n, j, 3)
+    heatmap = pcl_result[..., 3 * j:4 * j]
+    weight = pcl_result[..., 4 * j:]
+    weight_masked = torch.where(pcl[..., 2:] > 0.99,
+                                torch.full_like(weight, -1e8), weight)
+    normal_weight = torch.softmax(weight_masked, dim=1)
+    k = _kernel_arr(kernel_size, j, pcl_result.device)[:, None, :]
+    dist = k - heatmap * k
+    contrib = (offset * dist[..., None] + pcl[:, :, None, :]) \
+        * normal_weight[..., None]
+    return torch.sum(contrib, dim=1)

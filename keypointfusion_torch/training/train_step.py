@@ -1,0 +1,207 @@
+"""Train and eval steps of KPFusion (port of
+keypointfusion_tpu/training/train_step.py).
+
+One train step does what the JAX step body does: the train-mode forward
+(both backbones and the fusion blocks), compute_losses, the backward, the
+optimizer's update times `lr_scale`, and the BatchNorm statistics' update
+(in place, by the modules). The model runs on the CUDA card unless
+`device='cpu'` is given (utils/device.py). Dropout draws from the
+torch.Generator passed to the step, as JAX passes rngs={'dropout': rng};
+the generator lives on the model's device.
+
+The optimizers are torch's with optax's numbers (AdamW: betas (0.9,
+0.999), eps 1e-8, weight decay 0.01; Adam; SGD with momentum 0.9); every
+step sets their learning rate to the schedule's value at the step count,
+times lr_scale. optax.flatten, which the JAX package wraps its optimizer
+in to shrink XLA's compile, has no counterpart: torch's updates are
+elementwise per tensor already. cfg.remat recomputes the forward in the
+backward (torch.utils.checkpoint), with the forward's dropout masks and
+without a second update of the BatchNorm statistics.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from keypointfusion_torch.config import Config
+from keypointfusion_torch.geometry.camera import CropFrame
+from keypointfusion_torch.models.kpfusion import KPFusion, build_kpfusion
+from keypointfusion_torch.training.losses import compute_losses
+
+Batch = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters and BatchNorm statistics, updated in
+    place), its optimizer, the learning-rate schedule by step, the step
+    count and the learning-rate multiplier of scheduler='auto' (the
+    update is linear in the learning rate for every optimizer here, so
+    scaling it scales the update, as JAX scales its updates)."""
+    model: KPFusion
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    step: int = 0
+    lr_scale: float = 1.0
+
+
+def make_lr_schedule(cfg: Config, steps_per_epoch: int
+                     ) -> Callable[[int], float]:
+    """step -> learning rate. 'step': cfg.lr times step_gamma every
+    step_size epochs; 'constant' and 'auto' are flat ('auto' decays
+    through TrainState.lr_scale)."""
+    if cfg.scheduler in ('constant', 'auto'):
+        return lambda step: cfg.lr
+    if cfg.scheduler != 'step':
+        raise ValueError(f'unknown scheduler {cfg.scheduler!r}')
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        return cfg.lr * (cfg.step_gamma ** (epoch // cfg.step_size))
+    return schedule
+
+
+def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter],
+                   steps_per_epoch: int = 1000):
+    """(optimizer, schedule) for cfg.opt and cfg.scheduler."""
+    schedule = make_lr_schedule(cfg, steps_per_epoch)
+    params = list(params)
+    if cfg.opt == 'adamw':
+        opt = torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=0.01)
+    elif cfg.opt == 'adam':
+        opt = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
+                               eps=1e-8)
+    elif cfg.opt == 'sgd':
+        opt = torch.optim.SGD(params, lr=cfg.lr, momentum=0.9)
+    else:
+        raise ValueError(f'unknown optimizer {cfg.opt!r}')
+    return opt, schedule
+
+
+def apply_gradients(state: TrainState) -> None:
+    """One optimizer update from the parameters' .grad, at the schedule's
+    learning rate for state.step times state.lr_scale."""
+    lr = state.schedule(state.step) * state.lr_scale
+    for group in state.optimizer.param_groups:
+        group['lr'] = lr
+    state.optimizer.step()
+
+
+def batch_to_device(batch: Dict[str, np.ndarray], device) -> Batch:
+    """A batch of numpy arrays (data/synthetic.py:synthetic_batch's keys)
+    as tensors on `device`."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def frame_from_batch(batch: Batch, cfg: Config) -> CropFrame:
+    """The batch's CropFrame, flip +1 for every dataset (NYU's labels are
+    converted to that convention when loaded)."""
+    return CropFrame.from_batch(batch['cam_para'], batch['center'],
+                                batch['M'], batch['cube'], flip=1.0,
+                                img_size=cfg.input_size,
+                                device=batch['depth'].device)
+
+
+def create_train_state(cfg: Config, sample_batch: Batch, device=None,
+                       seed: int = 0, dropout: float = 0.1,
+                       steps_per_epoch: int = 1000) -> TrainState:
+    """A KPFusion in train mode with weights drawn from `seed`, on the
+    CUDA card unless `device` names another, and its optimizer.
+    cfg.compute_dtype: 'float32', or 'mixed' (bfloat16 backbones, float32
+    head). sample_batch is the JAX signature's: torch modules need no
+    sample to build, so only its keys are checked."""
+    if cfg.compute_dtype == 'bfloat16':
+        raise NotImplementedError(
+            'full bfloat16 training is not ported (ROADMAP.md §1 item 4); '
+            "use compute_dtype='mixed' or 'float32'")
+    missing = {'rgb', 'depth', 'pcl', 'uvd_gt', 'xyz_gt', 'cam_para',
+               'center', 'M', 'cube'} - set(sample_batch)
+    if missing:
+        raise ValueError(f'the batch lacks {sorted(missing)}')
+    model = build_kpfusion(cfg, device, seed, dropout=dropout).train()
+    optimizer, schedule = make_optimizer(cfg, model.parameters(),
+                                         steps_per_epoch)
+    return TrainState(model, optimizer, schedule)
+
+
+def _remat_contexts(model: torch.nn.Module,
+                    generator: Optional[torch.Generator]):
+    """torch.utils.checkpoint's context_fn. The recomputation in the
+    backward draws the forward's dropout masks again (the generator set
+    back to its state at the forward's start, then to where the step had
+    left it) and leaves the BatchNorm statistics as the forward left them
+    (they would take a second update otherwise)."""
+    start = None if generator is None else generator.get_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        buffers = [b.clone() for b in model.buffers()]
+        resume = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for b, saved in zip(model.buffers(), buffers):
+                    b.copy_(saved)
+            if generator is not None:
+                generator.set_state(resume)
+
+    return contextlib.nullcontext(), recompute()
+
+
+def make_train_step(cfg: Config) -> Callable:
+    """train_step(state, batch, generator=None, epoch=0) -> (state,
+    metrics). batch: tensors on the model's device (rgb, depth NHWC; pcl;
+    uvd_gt; xyz_gt; cam_para; center; M; cube). The state is updated in
+    place and returned; metrics are compute_losses' values, detached."""
+    kernel = cfg.feature_para[0]
+
+    def train_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator] = None, epoch=0):
+        model = state.model.train()
+        frame = frame_from_batch(batch, cfg)
+
+        def forward():
+            return model(batch['rgb'], batch['depth'], batch['pcl'], frame,
+                         kernel, generator)
+
+        if cfg.remat:
+            results, sw = checkpoint(
+                forward, use_reentrant=False,
+                context_fn=lambda: _remat_contexts(model, generator))
+        else:
+            results, sw = forward()
+        loss, metrics = compute_losses(results, sw, batch['depth'],
+                                       batch['uvd_gt'], batch['xyz_gt'],
+                                       frame, cfg, epoch)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        apply_gradients(state)
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_eval_step(cfg: Config) -> Callable:
+    """eval_step(state, batch) -> (results, spatial_weights): the eval
+    forward (running statistics, the kernels on the card) without
+    gradients."""
+    kernel = cfg.feature_para[0]
+
+    def eval_step(state: TrainState, batch: Batch):
+        model = state.model.eval()
+        with torch.no_grad():
+            return model(batch['rgb'], batch['depth'], batch['pcl'],
+                         frame_from_batch(batch, cfg), kernel)
+
+    return eval_step

@@ -415,3 +415,65 @@ def test_grouped_mlp_pool_direct_on_card(cuda_device, case):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def train_on(device, cfg, batch, dropout=0.0):
+    """One train step of a state drawn from seed 0 on `device`: (model,
+    loss, launches of every kernel during the step)."""
+    from keypointfusion_torch.training.train_step import (
+        batch_to_device, create_train_state, make_train_step,
+    )
+    b = batch_to_device(batch, device)
+    state = create_train_state(cfg, b, device=device, seed=0,
+                               dropout=dropout)
+    kernels = (k1.KERNEL, k1.SERVING_KERNEL, k2.KERNEL, k2.SERVING_KERNEL,
+               k3.KERNEL)
+    for k in kernels:
+        k.launches = 0
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.backends.mkldnn.flags(enabled=False):
+        state, metrics = make_train_step(cfg)(state, b, gen, 0)
+    return (state.model, float(metrics['loss']),
+            {k.name: k.launches for k in kernels})
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One SGD-momentum step (lr 1e-3, dropout 0, float32) at batch 2 with
+    256 points on the card and on the CPU from the same weights, held by
+    chip_smoke.py's float32 TRAIN_TOL (which says why): the loss, each
+    parameter, each running statistic, the update over all parameters
+    against the CPU's and against -lr times the card's own gradient, and
+    the statistics' change; the card's update and statistics' change
+    skipped, halved or doubled fail those three lines. The step launches no
+    kernel: K1 and K2 are eval-only."""
+    from chip_smoke import (
+        TRAIN_TOL, state64, step_grads, train_step_failures,
+    )
+    lr, tol = 1e-3, TRAIN_TOL['float32']
+    cfg = Config(opt='sgd', lr=lr)
+    batch = synthetic_batch(batch_size=2, point_num=256, seed=42)
+    start = state64(build_kpfusion(cfg, device='cpu', seed=0))
+    card, card_loss, launches = train_on(cuda_device, cfg, batch)
+    cpu, cpu_loss, _ = train_on('cpu', cfg, batch)
+    assert not any(launches.values()), launches
+    assert abs(card_loss - cpu_loss) <= tol['loss_rel'] * abs(cpu_loss)
+    for (name, x), y in zip(card.state_dict().items(),
+                            cpu.state_dict().values()):
+        if not x.is_floating_point():
+            assert torch.equal(x.cpu(), y), name
+    failures, errors, controls = train_step_failures(
+        state64(card), state64(cpu), start, step_grads(card), lr, tol)
+    assert not failures, (failures, errors, controls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', ['float32', 'mixed'])
+def test_train_step_launches_no_kernel_on_card(cuda_device, compute_dtype):
+    """A train step with dropout 0.1 from a CUDA generator, batch 2 at
+    full width: finite loss, every launch counter 0."""
+    batch = synthetic_batch(batch_size=2, point_num=1024, seed=3)
+    _, loss, launches = train_on(
+        cuda_device, Config(compute_dtype=compute_dtype), batch, 0.1)
+    assert np.isfinite(loss)
+    assert not any(launches.values()), launches

@@ -187,8 +187,8 @@ def test_streaming_engine_contract():
 
 def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     """Without a CUDA device, the entry points raise unless the caller
-    asks for the CPU by name; train mode raises instead of computing
-    something else."""
+    asks for the CPU by name; train mode's dropout draws only from a
+    generator the caller passes, never from the global RNG."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         build_kpfusion(Config())
@@ -196,12 +196,11 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         StreamingEngine(Config(point_num=128), batch_size=2)
     model = build_kpfusion(Config(), device='cpu')
     assert not model.training
-    with pytest.raises(NotImplementedError):
-        model.train()(None, None, None, None)
-    with pytest.raises(NotImplementedError):
-        model.block1.FA.train()(None, None, None, None)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match='Generator'):
         model.block1.init_TR.train()(torch.zeros(1, 21, 128))
+    with pytest.raises(ValueError, match='Generator'):
+        model.block1.crossTR.train()(torch.zeros(1, 21, 128),
+                                     torch.zeros(1, 21, 128))
 
 
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'keypointfusion_tpu')
@@ -232,7 +231,8 @@ def test_port_imports_no_jax():
                    timeout=300)
     sources = sorted((REPO / 'keypointfusion_torch').rglob('*.py'))
     sources += [REPO / 'chip_smoke.py',
-                REPO / 'scripts' / 'torch_serving_profile.py']
+                REPO / 'scripts' / 'torch_serving_profile.py',
+                REPO / 'scripts' / 'torch_train_profile.py']
     for path in sources:
         for mod in _imported_modules(path):
             assert mod.split('.')[0] not in FORBIDDEN, (path, mod)

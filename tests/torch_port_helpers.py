@@ -1,6 +1,10 @@
 """Shared helpers of the port parity tests (tests/test_torch_port_*.py)
 and of tests/torch_port_parity_report.py."""
 
+import contextlib
+import sys
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,3 +89,117 @@ def shared_kpfusion_weights(variables, batch):
                               torch.from_numpy(batch['rgb']))
     sd = {k: t.clone() for k, t in port.state_dict().items()}
     return sd, convert_kpfusion_checkpoint(sd)
+
+
+def train_weights(seed=0):
+    """(port state_dict, JAX variables) holding the same weights for the
+    train tests: the port's KPFusion drawn from `seed`, its BatchNorm
+    statistics perturbed, carried to JAX by the JAX package's converter
+    and back by utils/weights.py:jax_kpfusion_to_state_dict."""
+    from keypointfusion_tpu.utils.torch_convert import \
+        convert_kpfusion_checkpoint
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.models.kpfusion import build_kpfusion
+    from keypointfusion_torch.utils.weights import jax_kpfusion_to_state_dict
+    port = build_kpfusion(Config(), device='cpu', seed=seed)
+    v = jax.tree_util.tree_map(
+        np.asarray, convert_kpfusion_checkpoint(port.state_dict()))
+    v['batch_stats'] = perturb_batch_stats(v['batch_stats'], seed + 1)
+    return jax_kpfusion_to_state_dict(v), v
+
+
+def port_to_jax_tree(model: torch.nn.Module, grads: bool = False):
+    """The port model's parameters (or their gradients, zeros where none
+    reached) and BatchNorm statistics as JAX variables, numpy leaves."""
+    from keypointfusion_tpu.utils.torch_convert import \
+        convert_kpfusion_checkpoint
+    sd = {k: v.detach().float() for k, v in model.state_dict().items()}
+    if grads:
+        for k, p in model.named_parameters():
+            sd[k] = (torch.zeros_like(p) if p.grad is None
+                     else p.grad.detach().float())
+    return jax.tree_util.tree_map(np.asarray,
+                                  convert_kpfusion_checkpoint(sd))
+
+
+def leaf_errors(got, want):
+    """{path: (max abs error, max |want|)} over the leaves of two trees
+    of the same structure."""
+    flat_got = dict(jax.tree_util.tree_leaves_with_path(got))
+    out = {}
+    for path, w in jax.tree_util.tree_leaves_with_path(want):
+        w = np.asarray(w, np.float64)
+        g = np.asarray(flat_got[path], np.float64)
+        assert g.shape == w.shape, (jax.tree_util.keystr(path), g.shape)
+        out[jax.tree_util.keystr(path)] = (float(np.abs(g - w).max()),
+                                           float(np.abs(w).max()))
+    return out
+
+
+def _two_pass_batch_norm(original):
+    def batch_norm(input, running_mean, running_var, weight=None, bias=None,
+                   training=False, momentum=0.1, eps=1e-5):
+        if not training:
+            return original(input, running_mean, running_var, weight, bias,
+                            training, momentum, eps)
+        dims = [d for d in range(input.dim()) if d != 1]
+        shape = [1] * input.dim()
+        shape[1] = input.shape[1]
+        x = input.to(weight.dtype if weight is not None else input.dtype)
+        mean = x.mean(dims)
+        var = (x - mean.reshape(shape)).square().mean(dims)
+        if running_mean is not None:
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                running_mean.mul_(1 - momentum).add_(momentum * mean)
+                running_var.mul_(1 - momentum).add_(
+                    momentum * var * n / max(n - 1, 1))
+        y = (x - mean.reshape(shape)) * torch.rsqrt(var + eps).reshape(shape)
+        if weight is not None:
+            y = y * weight.reshape(shape) + bias.reshape(shape)
+        return y.to(input.dtype)
+    return batch_norm
+
+
+@contextlib.contextmanager
+def cpu_reference_batch_norms():
+    """Train-mode BatchNorm with its statistics taken in two passes of
+    torch's cascade sums. torch's CPU batch_norm sums each channel's
+    8192-32768 terms in one sequential pass: on the depth backbone's
+    first layer its output lies 1.6e-4 from float64 statistics, where two
+    passes lie 1.4e-6 (and XLA's CPU reduction 1.0e-4). As with
+    cpu_reference_convs, the parity tests then compare the port at
+    float32 rounding and not at that summation's."""
+    import torch.nn.functional as F
+    original = F.batch_norm
+    F.batch_norm = _two_pass_batch_norm(original)
+    try:
+        yield
+    finally:
+        F.batch_norm = original
+
+
+@contextlib.contextmanager
+def jax_float64():
+    """JAX with 64-bit types, and the JAX package computing in float64
+    where it names jnp.float32 (its BatchNorm, the pixel sampler, the
+    grouped features, the smooth-L1 loss, the codecs' masks) while the
+    context lasts, through a `jnp` whose float32 is float64 in each of its
+    loaded modules. ops/pairwise.py keeps float32: the squared distances
+    that pick each point's pixels and each ball's members are float32 in
+    the model, and in the port's float64 run too, so that both sides pick
+    the same neighbours. The model itself takes dtype=jnp.float64."""
+    proxy = types.SimpleNamespace(**vars(jnp))
+    proxy.float32 = jnp.float64
+    patched = [m for name, m in list(sys.modules.items())
+               if name.startswith('keypointfusion_tpu.')
+               and not name.endswith('.pairwise')
+               and getattr(m, 'jnp', None) is jnp]
+    for m in patched:
+        m.jnp = proxy
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        for m in patched:
+            m.jnp = jnp
