@@ -13,10 +13,13 @@ set to 0 just before and read just after: the float32 and the bfloat16
 streaming engine, each answering 4 requests of 64 full 480x640 RGB-D
 frames (the bfloat16 line gives how many pixels K2 'default' selects per
 point on one request's data), and K3's own entry point,
-desa_apply_inference; and the train step in float32 and 'mixed'
+desa_apply_inference; the train step in float32, 'mixed' and bfloat16
 (check_train: one step on the card against the CPU, 13 steps at batch
 64 timed, no kernel launched in them, then an eval step through K1 and
-K2). Weights are random, drawn from a seed. Every phase prints one
+K2); and the trainer (check_trainer: training/trainer.py's Trainer for 2
+epochs, its resume against the straight run, its test() through the
+kernels against the plain path, evaluation()). Weights are random, drawn
+from a seed. Every phase prints one
 line; then a JSON line describing each kernel, the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
@@ -40,10 +43,13 @@ convolutions run without TF32 throughout, but for the controls that show
 one TF32 pass fails K1 'highest''s and K3's limits.
 """
 
+import collections
 import json
 import subprocess
 import sys
 import time
+import types
+import warnings
 
 import numpy as np
 
@@ -99,17 +105,43 @@ TRAIN_STEPS = 10
 # implementations' gradients alike at batch 2 (JAX's own 'mixed' forward
 # lies 0.16-0.66 from its float32 one on the block outputs,
 # tests/test_torch_port_train_forward.py), so 'mixed' holds no 'update'
-# line; its other limits are about 3x the measured, its floor 10 lr
+# line; its other limits are about 3x the measured, its floor 10 lr.
+# 'bfloat16' (the whole model), the same way: loss 0.0061, the worst
+# parameter under 0.29 and statistic 0.26 of these limits, statistics'
+# change 0.024, own update 7.0e-5; the update 0.73 from the CPU's
 TRAIN_TOL = {'float32': {'param_rel': 1e-4, 'lr_floor': 3,
                          'stat_rel': 1e-2, 'loss_rel': 1e-4,
                          'update_rel': 0.1, 'own_update_rel': 1e-3,
                          'stat_change_rel': 0.01},
              'mixed': {'param_rel': 0.04, 'lr_floor': 10, 'stat_rel': 0.5,
                        'loss_rel': 0.06, 'update_rel': None,
-                       'own_update_rel': 1e-3, 'stat_change_rel': 0.1}}
+                       'own_update_rel': 1e-3, 'stat_change_rel': 0.1},
+             'bfloat16': {'param_rel': 0.04, 'lr_floor': 10,
+                          'stat_rel': 0.5, 'loss_rel': 0.02,
+                          'update_rel': None, 'own_update_rel': 1e-3,
+                          'stat_change_rel': 0.1}}
 # the controls: the card's step with its update and its statistics' change
 # scaled by these factors must fail every update line held
 TRAIN_CONTROLS = (0.0, 0.5, 2.0)
+TRAINER_TRAIN = 4 * BATCH   # samples: 4 steps an epoch
+TRAINER_TEST = BATCH + 40   # a full batch and a partial one, padded
+TRAINER_EPOCHS = 2
+# the [trainer] phase's resumed run against the straight run (L2 over every
+# tensor at once: parameters and statistics over how far the straight run
+# moved them, each AdamW moment over its size). The card's backward sums
+# with atomics (the bilinear upsampling's, cuDNN's), so no two runs are
+# alike bit for bit, and 8 AdamW steps from random weights carry that far:
+# two straight runs lay 0.20-0.23, 0.041-0.048, 0.134-0.148 and
+# 0.016-0.024 apart, the resumed run 0.20-0.22, 0.038-0.053, 0.137-0.144
+# and 0.015-0.024 from the straight one, cuDNN's deterministic algorithms
+# on or off alike (scripts/torch_trainer_resume_spread.py and this
+# script, an H100 at 700 W); a control resumed without the optimizer's
+# state lay 0.73-0.74, 0.345-0.364, 1.89-2.00 and 1.86-2.08 away. The
+# limits are about twice the spread; the control must fail every one
+RESUME_TOL = {'params': 0.5, 'stats': 0.1, 'exp_avg': 0.3, 'exp_avg_sq': 0.05}
+# test() through the kernels against test() on the plain path, in mm: the
+# float32 forward's 1e-4 of scale times the half cube
+TRAINER_MM_TOL = FORWARD_TOL * 125.0
 SERVING_TOL = {'joint_xyz_mm': 1e-4 * 125.0, 'joint_uvd': 1e-4, 'M': 0.0}
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
            'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
@@ -928,6 +960,35 @@ def check_serving(dev, kernels, card, dtype):
     return launches
 
 
+class Block2Inputs:
+    """Block 2's joints and block 1's 2D feature, recorded on a run through
+    the kernels and handed to block 2 on the plain run that follows, so
+    that both runs' block 2 takes the same inputs. Block 1's outputs
+    differ by some 1e-6 between the kernels and the plain path; a point
+    that close to a ball's edge joins a group of block 2 on one path and
+    not the other, and moves block 2's outputs past 1e-4 (8.0e-4 on b2_3d
+    once in five runs on an H100: trained weights differ from run to run,
+    since the card's backward is not deterministic)."""
+
+    def __init__(self, model):
+        self.calls, self.replaying = [], None
+        self.handle = model.block2.register_forward_pre_hook(self.hook)
+
+    def hook(self, module, args):
+        if self.replaying is None:
+            self.calls.append((args[3], args[5]))
+            return None
+        joint, updated = self.calls[self.replaying]
+        self.replaying += 1
+        return args[:3] + (joint,) + args[4:5] + (updated,) + args[6:]
+
+    def replay(self):
+        self.replaying = 0
+
+    def remove(self):
+        self.handle.remove()
+
+
 def state64(model):
     """The model's floating-point state, float64 on the CPU."""
     return {k: v.detach().cpu().double()
@@ -996,7 +1057,8 @@ def step_grads(model):
 
 def check_train(dev, kernels, card, compute_dtype):
     """A main path: the train step of KPFusion-resnet-18 in
-    `compute_dtype` ('float32', TF32 off, or 'mixed': bfloat16 backbones).
+    `compute_dtype` ('float32', TF32 off; 'mixed': bfloat16 backbones; or
+    'bfloat16': the whole model).
     1. One SGD-momentum step at batch 2 with 256 points, dropout 0, on the
        card and on the CPU (the port's own step; this machine has no JAX)
        from the same weights: the loss, every parameter, every running
@@ -1008,13 +1070,18 @@ def check_train(dev, kernels, card, compute_dtype):
        events; peak memory; every loss finite. The launch counters, set to
        0 before the steps, read 0 after them (the kernels are eval-only).
     3. .eval() and one eval step on the trained weights, counters set to 0
-       just before: K2 once and K1 once per block, within FORWARD_TOL of
-       the plain path."""
+       just before: K2 once and K1 once per block, in their 'highest'
+       modes under a float32 head ('float32', 'mixed'), within FORWARD_TOL
+       of the plain path, block 2 taking the same inputs on both paths
+       (Block2Inputs); in their 'default' modes in 'bfloat16', within
+       check_forward's bfloat16 budget against the float32 plain path on
+       the same weights."""
     import torch
     from keypointfusion_torch.config import Config
     from keypointfusion_torch.data.synthetic import synthetic_batch
+    from keypointfusion_torch.models.kpfusion import build_kpfusion
     from keypointfusion_torch.training.train_step import (
-        batch_to_device, create_train_state, make_eval_step,
+        TrainState, batch_to_device, create_train_state, make_eval_step,
         make_train_step,
     )
 
@@ -1081,27 +1148,52 @@ def check_train(dev, kernels, card, compute_dtype):
                              f'launched {step_launches}')
 
     evaluate = make_eval_step(cfg)
+    head_f32 = state.model.dtype == torch.float32
+    if head_f32:
+        block2 = Block2Inputs(state.model)
     reset(kernels)
     got = evaluate(state, batch)
     eval_launches = counts(kernels)
+    suffix = '' if head_f32 else '_serving'
     want_launches = dict.fromkeys(kernels, 0)
-    want_launches.update(pixel_sampler=1, desa_dense=2)
+    want_launches.update({'pixel_sampler' + suffix: 1,
+                          'desa_dense' + suffix: 2})
     if eval_launches != want_launches:
         raise AssertionError(f'eval after training launched '
                              f'{eval_launches}, expected {want_launches}')
     state.model.use_kernels = False
+    if head_f32:
+        block2.replay()
     want = evaluate(state, batch)
     state.model.use_kernels = True
+    if head_f32:
+        block2.remove()
+    else:
+        # the bfloat16 forward's budget (check_forward) against the
+        # float32 plain path on the trained weights
+        f32 = build_kpfusion(Config(), device=dev, seed=0,
+                             dtype=torch.float32)
+        f32.load_state_dict(state.model.state_dict())
+        ref = make_eval_step(Config())(TrainState(f32, None, None), batch)
+        del f32
     errs = {}
-    for name, g, w in zip(OUTPUTS, got[0] + got[1], want[0] + want[1]):
+    for i, (name, g, w) in enumerate(zip(OUTPUTS, got[0] + got[1],
+                                         want[0] + want[1])):
         g, w = g.float(), w.float()
         if not torch.isfinite(g).all():
             raise AssertionError(f'eval after training: {name} not finite')
         errs[name] = float((g - w).abs().max())
-        if not errs[name] <= FORWARD_TOL * max(1.0, float(w.abs().max())):
+        if head_f32:
+            limit = FORWARD_TOL * max(1.0, float(w.abs().max()))
+        else:
+            r = (ref[0] + ref[1])[i].float()
+            errs[name] = float((g - r).abs().max())
+            limit = 2 * float((w - r).abs().max()) \
+                + 2 ** -8 * max(1.0, float(r.abs().max()))
+        if not errs[name] <= limit:
             raise AssertionError(f'eval after training {name}: kernels '
                                  f'differ from the plain path by '
-                                 f'{errs[name]}')
+                                 f'{errs[name]} > {limit}')
     log('train', dtype=compute_dtype, batch=BATCH, points=1024,
         card_vs_cpu=json.dumps({
             'batch': 2, 'lr': TRAIN_LR, 'loss_rel': loss_err,
@@ -1120,6 +1212,347 @@ def check_train(dev, kernels, card, compute_dtype):
         eval_launches=json.dumps(eval_launches),
         eval_max_abs_err=max(errs.values()), card=json.dumps(card))
     del state
+
+
+MOMENTS = ('exp_avg', 'exp_avg_sq')
+
+
+def trainer_state(trainer):
+    """A trainer's parameters, running statistics, AdamW moments (float64
+    on the CPU) and step counts."""
+    model = trainer.state.model
+    opt = trainer.state.optimizer.state
+    out = {'params': {k: p.detach().cpu().double()
+                      for k, p in model.named_parameters()},
+           'stats': {k: v.detach().cpu().double() for k, v in
+                     model.named_buffers() if v.is_floating_point()},
+           'step': trainer.state.step,
+           'adam_steps': sorted({int(s['step']) for s in opt.values()})}
+    for m in MOMENTS:
+        out[m] = {k: opt[p][m].detach().cpu().double()
+                  for k, p in model.named_parameters() if p in opt}
+    return out
+
+
+def resume_errors(got, want, start):
+    """L2 over every tensor at once: the parameters' and the statistics'
+    distance from `want` over how far `want` moved from `start`, each
+    moment's distance over its size."""
+    out = {}
+    for group in RESUME_TOL:
+        diff = ref = 0.0
+        for k, w in want[group].items():
+            diff += float((got[group][k] - w).square().sum())
+            base = w if group in MOMENTS else w - start[group][k]
+            ref += float(base.square().sum())
+        out[group] = (diff / ref) ** 0.5
+    return out
+
+
+def same_state(a, b):
+    """Whether two trainer_state()s are equal bit for bit."""
+    import torch
+    return a['step'] == b['step'] and a['adam_steps'] == b['adam_steps'] \
+        and all(torch.equal(a[g][k], b[g][k])
+                for g in RESUME_TOL for k in b[g])
+
+
+def resume_runs(make, cfg, start, end, train=lambda t: t.train()):
+    """The resume check of a straight run from `start` to `end` (both
+    trainer_state()s): a one-epoch run (`make(name, cfg)` builds a
+    Trainer), a new Trainer with resume=True, which must hold the
+    checkpoint's state bit for bit and is trained by `train`, and a
+    control resumed without the optimizer's state. Returns (failures,
+    errors, control errors, the resumed Trainer)."""
+    import dataclasses
+    from keypointfusion_torch.training.train_step import make_optimizer
+    first = make('resumed', dataclasses.replace(cfg, epochs=1))
+    first.train()
+    resumed = make('resumed', dataclasses.replace(cfg, resume=True))
+    control = make('resumed', dataclasses.replace(cfg, resume=True))
+    failures = []
+    if resumed.start_epoch != 1 \
+            or not same_state(trainer_state(resumed), trainer_state(first)):
+        failures.append('the restored state is not the saved one')
+    control.state.optimizer = make_optimizer(
+        cfg, control.state.model.parameters(),
+        len(first.train_data) // cfg.batch_size)[0]
+    train(resumed)
+    control.train()
+    got = trainer_state(resumed)
+    errors = resume_errors(got, end, start)
+    control_errors = resume_errors(trainer_state(control), end, start)
+    failures += [k for k, e in errors.items() if not e <= RESUME_TOL[k]]
+    failures += [f'control passed {k}' for k, e in control_errors.items()
+                 if e <= RESUME_TOL[k]]
+    if (got['step'], got['adam_steps']) != (end['step'], end['adam_steps']):
+        failures.append('step')
+    return failures, errors, control_errors, resumed
+
+
+class TrainerProbe:
+    """Host time of each train step, the host's waits for the card
+    (torch.cuda.set_sync_debug_mode) in each step and by where the
+    trainer was (steps, the loop between them, test(), checkpoints), and
+    the launches of each test()."""
+
+    def __init__(self, trainer, kernels):
+        self.trainer = trainer
+        self.step_ms, self.step_waits = [], []
+        self.waits, self.where = collections.Counter(), 'loop'
+        self.loop_sites = collections.Counter()
+        self.test_launches = []
+        step, test, save = trainer.train_step, trainer.test, \
+            trainer.ckpt.save
+
+        def timed_step(*args):
+            self.where, before = 'step', self.waits['step']
+            t0 = time.perf_counter()
+            out = step(*args)
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.step_waits.append(self.waits['step'] - before)
+            self.where = 'loop'
+            return out
+
+        def counted_test(*args):
+            self.where = 'test'
+            reset(kernels)
+            out = test(*args)
+            self.test_launches.append(counts(kernels))
+            self.where = 'loop'
+            return out
+
+        def counted_save(*args):
+            self.where = 'checkpoint'
+            out = save(*args)
+            self.where = 'loop'
+            return out
+
+        trainer.train_step, trainer.test = timed_step, counted_test
+        trainer.ckpt.save = counted_save
+
+    def run(self, fn):
+        """fn() with every wait for the card counted where it fell."""
+        import torch
+        with warnings.catch_warnings():
+            warnings.simplefilter('always')
+            original = warnings.showwarning
+
+            def show(message, category, filename, lineno, *args, **kw):
+                if 'synchroniz' in str(message):
+                    self.waits[self.where] += 1
+                    if self.where == 'loop':
+                        self.loop_sites[f'{filename}:{lineno}'] += 1
+                else:
+                    original(message, category, filename, lineno, *args,
+                             **kw)
+            # the mode's own notice, when it is first set, is no wait
+            torch.cuda.set_sync_debug_mode('warn')
+            warnings.showwarning = show
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode('default')
+                warnings.showwarning = original
+
+    def train(self):
+        return self.run(self.trainer.train)
+
+
+def check_trainer(dev, kernels, card):
+    """A main path: training/trainer.py's Trainer, float32, KPFusion-
+    resnet-18 at full width and depth, batch 64, 1024 points, random
+    weights from seed 0, on in-memory synthetic datasets: a train set of
+    TRAINER_TRAIN samples (4 steps an epoch) and a test set of
+    TRAINER_TEST (a full batch and one of 40, padded).
+    1. A straight run of TRAINER_EPOCHS epochs (test() after each, best
+       and latest checkpoints): host ms per step, peak memory; test()'s
+       launches per call, counters set to 0 just before and read just
+       after: K2 'highest' once and K1 'highest' twice per batch.
+    2. resume_runs: a one-epoch run, then a new Trainer with resume=True
+       (holding the checkpoint's state bit for bit) and its second epoch,
+       the host's waits for the card counted by where they fell. Its
+       parameters, statistics and AdamW moments against the straight
+       run's within RESUME_TOL, its step counts equal; a control that
+       resumes everything but the optimizer's state must fail every
+       limit.
+    3. test() of the straight run through the kernels and again with
+       use_kernels=False, block 2 taking the same inputs on both
+       (Block2Inputs): every stage's error and PA error of every sample
+       and joint within TRAINER_MM_TOL, the dumps within it plus their
+       print unit.
+    4. evaluation()'s pred.json holds [104, 21, 3] joints and [104, 778,
+       3] meshes; the best and latest checkpoints exist."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.data.pipeline import collate
+    from keypointfusion_torch.data.synthetic import synthetic_dataset
+    from keypointfusion_torch.training.train_step import (
+        batch_to_device, create_train_state, make_train_step,
+    )
+    from keypointfusion_torch.training.trainer import Trainer
+
+    @dataclasses.dataclass(frozen=True)
+    class TrainerConfig(Config):
+        epochs: int = TRAINER_EPOCHS
+
+        @property
+        def max_epoch(self) -> int:
+            return self.epochs
+
+    cfg = TrainerConfig(batch_size=BATCH, point_num=1024, seed=0,
+                        pretrain='')
+    train_set = synthetic_dataset(TRAINER_TRAIN, 1024, seed=1000)
+    test_set = synthetic_dataset(TRAINER_TEST, 1024, seed=5000)
+    root = tempfile.mkdtemp(prefix='kpf_trainer_')
+    try:
+        make = lambda name, c=cfg: Trainer(
+            c, train_set, test_set, model_dir=os.path.join(root, name),
+            device=dev)
+
+        straight = make('straight')
+        start = trainer_state(straight)
+        probe = TrainerProbe(straight, kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        probe.train()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        want_test = dict.fromkeys(kernels, 0)
+        want_test.update(pixel_sampler=2, desa_dense=4)
+        if any(c != want_test for c in probe.test_launches) \
+                or len(probe.test_launches) != TRAINER_EPOCHS:
+            raise AssertionError(f'test() launched {probe.test_launches}, '
+                                 f'expected {want_test} per call')
+        end = trainer_state(straight)
+
+        # the bare step in the same conditions: make_train_step on one
+        # batch, no loader, host time and waits per call
+        state = create_train_state(cfg, train_set[0], device=dev, seed=0)
+        batch = batch_to_device(collate(train_set[:BATCH]), dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        step = make_train_step(cfg)
+        step(state, batch, gen, 0)                       # warm-up
+        bare = types.SimpleNamespace(train_step=step, test=None,
+                                     ckpt=types.SimpleNamespace(save=None))
+        bare_probe = TrainerProbe(bare, kernels)
+        bare_probe.run(lambda: [bare.train_step(state, batch, gen, 0)
+                                for _ in range(len(probe.step_ms))])
+        del state, bare
+
+        probes = []
+
+        def probed(trainer):
+            probes.append(TrainerProbe(trainer, kernels))
+            return probes[-1].train()
+        failures, errors, control_errors, resumed = resume_runs(
+            make, cfg, start, end, probed)
+        resumed_probe = probes[0]
+        if max(resumed_probe.step_waits[1:]) > max(probe.step_waits[1:]):
+            failures.append('the resumed steps wait for the card more')
+        if probe.waits['loop'] > TRAINER_EPOCHS \
+                or resumed_probe.waits['loop'] > 1:
+            failures.append('the loop waits for the card')
+        if failures:
+            raise AssertionError(f'resume: {failures}; errors {errors}, '
+                                 f'control {control_errors}, tolerance '
+                                 f'{RESUME_TOL}; waits straight '
+                                 f'{probe.step_waits}, {dict(probe.waits)}, '
+                                 f'{dict(probe.loop_sites)}, resumed '
+                                 f'{resumed_probe.step_waits}, '
+                                 f'{dict(resumed_probe.waits)}')
+
+        rows, dumps = [], []
+        stage_results = straight._stage_results
+
+        def record(batch):
+            out = stage_results(batch)
+            rows.append(out)
+            return out
+        straight._stage_results = record
+        block2 = Block2Inputs(straight.state.model)
+        reset(kernels)
+        straight.test()
+        test_launches = counts(kernels)
+        for use_kernels in (True, False):
+            straight.state.model.use_kernels = use_kernels
+            if not use_kernels:
+                block2.replay()
+                straight.test()
+            dumps.append([np.loadtxt(os.path.join(
+                straight.model_dir, f'test_{i}.txt'))
+                for i in range(len(cfg.stage_type))])
+        straight.state.model.use_kernels = True
+        block2.remove()
+        if test_launches != want_test:
+            raise AssertionError(f'test() launched {test_launches}, '
+                                 f'expected {want_test}')
+        n = len(rows) // 2
+        got, want = rows[:n], rows[n:]
+        test_err = {'err_mm': 0.0, 'pa_mm': 0.0, 'dump_mm': 0.0}
+        for g, w in zip(got, want):
+            if not np.isfinite(g).all():
+                raise AssertionError('test(): non-finite results')
+            test_err['err_mm'] = max(test_err['err_mm'],
+                                     float(np.abs(g[..., 0] - w[..., 0]).max()))
+            test_err['pa_mm'] = max(test_err['pa_mm'],
+                                    float(np.abs(g[..., 1] - w[..., 1]).max()))
+        for g, w in zip(*dumps):
+            if g.shape != (TRAINER_TEST, 63) or w.shape != g.shape:
+                raise AssertionError(f'test() dump of shape {g.shape}')
+            test_err['dump_mm'] = max(test_err['dump_mm'],
+                                      float(np.abs(g - w).max()))
+        if not (test_err['err_mm'] <= TRAINER_MM_TOL
+                and test_err['pa_mm'] <= TRAINER_MM_TOL
+                and test_err['dump_mm'] <= TRAINER_MM_TOL + 1e-3):
+            raise AssertionError(f'test() through the kernels differs from '
+                                 f'the plain path: {test_err}')
+
+        with open(straight.evaluation()) as f:
+            joints, meshes = (np.array(x) for x in json.load(f))
+        if joints.shape != (TRAINER_TEST, 21, 3) \
+                or meshes.shape != (TRAINER_TEST, 778, 3) \
+                or not np.isfinite(joints).all():
+            raise AssertionError(f'pred.json holds {joints.shape}, '
+                                 f'{meshes.shape}')
+        for t in (straight, resumed):
+            for name in ('best', 'latest'):
+                if not os.path.isfile(t.ckpt.path(name)):
+                    raise AssertionError(f'no {name} checkpoint')
+        log('trainer', dtype='float32', batch=BATCH, points=1024,
+            train_samples=TRAINER_TRAIN, test_samples=TRAINER_TEST,
+            epochs=TRAINER_EPOCHS, wall_s=round(wall_s, 3),
+            host_ms_per_step=json.dumps([round(x, 3)
+                                         for x in probe.step_ms]),
+            host_ms_per_step_after_first=round(float(
+                np.mean(probe.step_ms[1:])), 3),
+            bare_host_ms_per_step=json.dumps([round(x, 3)
+                                              for x in bare_probe.step_ms]),
+            bare_host_ms_mean=round(float(np.mean(bare_probe.step_ms)), 3),
+            peak_gib=round(peak_gib, 3),
+            waits_per_step=json.dumps({
+                'straight': probe.step_waits,
+                'resumed': resumed_probe.step_waits,
+                'bare': bare_probe.step_waits}),
+            waits=json.dumps({'straight': dict(probe.waits),
+                              'resumed': dict(resumed_probe.waits)}),
+            resume=json.dumps({'errors': errors,
+                               'control': control_errors,
+                               'tol': RESUME_TOL}),
+            test_launches=json.dumps(test_launches),
+            test_kernels_vs_plain=json.dumps(test_err),
+            tol_mm=TRAINER_MM_TOL, pred_json=json.dumps(
+                [list(joints.shape), list(meshes.shape)]),
+            min_error=round(straight.min_error, 4), card=json.dumps(card))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -1170,8 +1603,9 @@ def main():
     for name in ('pixel_sampler_serving', 'desa_dense_serving'):
         launches[name] = launches_bf[name]
     launches['grouped_mlp_pool'] = stats['grouped_mlp_pool'].pop('launches')
-    for compute_dtype in ('float32', 'mixed'):
+    for compute_dtype in ('float32', 'mixed', 'bfloat16'):
         check_train(dev, kernels, card, compute_dtype)
+    check_trainer(dev, kernels, card)
 
     replaces = {'pixel_sampler': 'pixel_sampler_pallas.py:212',
                 'desa_dense': 'desa_dense_pallas.py:257',

@@ -5,6 +5,8 @@ layout and names; it imports neither JAX nor the JAX package. The serving
 path of KPFusion-resnet-18 is ported, in float32 and bfloat16: on-device
 preprocessing (data/device_preprocess.py), the model (models/kpfusion.py),
 the streaming engine (serving.py) and the CUDA kernels that path runs
-(kernels/, csrc/); and its train step in float32 and 'mixed' precision
-(training/).
+(kernels/, csrc/); its train step in float32, 'mixed' and bfloat16
+(training/train_step.py); and the trainer (training/trainer.py: epochs,
+test metrics, checkpoints, resume, warm starts) with its batch loader
+(data/pipeline.py).
 """

@@ -1,9 +1,13 @@
 """Configuration for the PyTorch port of KeypointFusion.
 
-The fields the serving path and the train step read, with the names and
-defaults of the JAX package's `Config` (keypointfusion_tpu/config.py),
-which mirror the reference config singleton. The port keeps its own copy
-so that it imports nothing from the JAX package.
+The fields the serving path, the train step and the trainer read, with
+the names and defaults of the JAX package's `Config`
+(keypointfusion_tpu/config.py), which mirror the reference config
+singleton. The port keeps its own copy so that it imports nothing from the
+JAX package. The data-augmentation fields come with the data loaders.
+`flatten_opt` is left out: it only picks optax's moment layout (one raveled
+vector or one per leaf), and torch's optimizers keep their moments per
+tensor.
 """
 
 import dataclasses
@@ -40,9 +44,23 @@ CUBE = {
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    phase: str = 'train'              # ['train', 'test', 'eval']
+    root_dir: str = './data'
+
     net: str = 'KPFusion-resnet-18'   # only resnet-18 is ported so far
     dataset: str = 'dexycb'           # ['nyu', 'STB', 'dexycb', 'ho3d']
+    model_save: str = ''
+    save_dir: str = './'
+    pretrain: str = '1k'
+    # on-disk ImageNet checkpoint (file or directory) behind `pretrain`;
+    # when empty the torch hub cache is searched and a miss keeps the
+    # random init. A path with no matching checkpoint is an error.
+    pretrain_dir: str = ''
     point_num: int = 1024
+
+    load_model: str = ''              # a .pth, or a checkpoint's name
+    finetune_dir: str = ''
+    resume: bool = False              # full resume from 'latest'
 
     batch_size: int = 64
     input_size: int = 128
@@ -72,6 +90,9 @@ class Config:
     # recompute the forward in the train step's backward
     # (torch.utils.checkpoint): activation memory for compute
     remat: bool = False
+    # train steps per call of the trainer's step: G > 1 stacks G loader
+    # batches and runs them through make_train_step_scan
+    steps_per_dispatch: int = 1
 
     @property
     def joint_num(self) -> int:

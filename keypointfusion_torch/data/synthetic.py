@@ -9,7 +9,7 @@ dataset on disk.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -97,6 +97,16 @@ def synthetic_batch(batch_size: int = 8, joint_num: int = 21,
         'xyz_gt': xyz_gt, 'uvd_gt': uvd_gt, 'center': center, 'M': M,
         'cube': cube, 'cam_para': cam_para,
     }
+
+
+def synthetic_dataset(n: int, point_num: int = 1024, seed: int = 0,
+                      joint_num: int = 21) -> List[Dict[str, np.ndarray]]:
+    """An in-memory dataset for the trainer: n samples (synthetic_batch's
+    arrays without the batch axis), sample i drawn with seed `seed + i`,
+    as the JAX package's trainer tests draw theirs."""
+    return [{k: v[0] for k, v in synthetic_batch(
+        batch_size=1, joint_num=joint_num, point_num=point_num,
+        seed=seed + i).items()} for i in range(n)]
 
 
 def synthetic_frames(batch_size: int, height: int = 480, width: int = 640,

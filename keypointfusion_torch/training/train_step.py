@@ -12,9 +12,11 @@ the generator lives on the model's device.
 The optimizers are torch's with optax's numbers (AdamW: betas (0.9,
 0.999), eps 1e-8, weight decay 0.01; Adam; SGD with momentum 0.9); every
 step sets their learning rate to the schedule's value at the step count,
-times lr_scale. optax.flatten, which the JAX package wraps its optimizer
-in to shrink XLA's compile, has no counterpart: torch's updates are
-elementwise per tensor already. cfg.remat recomputes the forward in the
+times lr_scale. compute_dtype 'bfloat16' trains the whole model in
+bfloat16 over float32 parameters, as the JAX package's full-bfloat16
+state does; 'mixed' only the backbones. optax.flatten, which the JAX
+package wraps its optimizer in to shrink XLA's compile, has no
+counterpart: torch's updates are elementwise per tensor already. cfg.remat recomputes the forward in the
 backward (torch.utils.checkpoint), with the forward's dropout masks and
 without a second update of the BatchNorm statistics.
 """
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,25 +48,36 @@ class TrainState:
     scaling it scales the update, as JAX scales its updates)."""
     model: KPFusion
     optimizer: torch.optim.Optimizer
-    schedule: Callable[[int], float]
+    schedule: LrSchedule
     step: int = 0
     lr_scale: float = 1.0
 
 
-def make_lr_schedule(cfg: Config, steps_per_epoch: int
-                     ) -> Callable[[int], float]:
-    """step -> learning rate. 'step': cfg.lr times step_gamma every
-    step_size epochs; 'constant' and 'auto' are flat ('auto' decays
-    through TrainState.lr_scale)."""
-    if cfg.scheduler in ('constant', 'auto'):
-        return lambda step: cfg.lr
-    if cfg.scheduler != 'step':
-        raise ValueError(f'unknown scheduler {cfg.scheduler!r}')
+@dataclasses.dataclass(frozen=True)
+class LrSchedule:
+    """step -> learning rate. 'step': lr times step_gamma every step_size
+    epochs of steps_per_epoch steps; 'constant' and 'auto' are flat
+    (`stepped` False; 'auto' decays through TrainState.lr_scale). Plain
+    numbers, so a checkpoint carries it as it was."""
+    lr: float
+    step_gamma: float = 1.0
+    step_size: int = 1
+    steps_per_epoch: int = 1
+    stepped: bool = False
 
-    def schedule(step: int) -> float:
-        epoch = step // max(steps_per_epoch, 1)
-        return cfg.lr * (cfg.step_gamma ** (epoch // cfg.step_size))
-    return schedule
+    def __call__(self, step: int) -> float:
+        if not self.stepped:
+            return self.lr
+        epoch = step // max(self.steps_per_epoch, 1)
+        return self.lr * (self.step_gamma ** (epoch // self.step_size))
+
+
+def make_lr_schedule(cfg: Config, steps_per_epoch: int) -> LrSchedule:
+    """The schedule of cfg.scheduler ('step', 'constant' or 'auto')."""
+    if cfg.scheduler not in ('step', 'constant', 'auto'):
+        raise ValueError(f'unknown scheduler {cfg.scheduler!r}')
+    return LrSchedule(cfg.lr, cfg.step_gamma, cfg.step_size,
+                      steps_per_epoch, cfg.scheduler == 'step')
 
 
 def make_optimizer(cfg: Config, params: Iterable[torch.nn.Parameter],
@@ -114,13 +127,13 @@ def create_train_state(cfg: Config, sample_batch: Batch, device=None,
                        steps_per_epoch: int = 1000) -> TrainState:
     """A KPFusion in train mode with weights drawn from `seed`, on the
     CUDA card unless `device` names another, and its optimizer.
-    cfg.compute_dtype: 'float32', or 'mixed' (bfloat16 backbones, float32
-    head). sample_batch is the JAX signature's: torch modules need no
-    sample to build, so only its keys are checked."""
-    if cfg.compute_dtype == 'bfloat16':
-        raise NotImplementedError(
-            'full bfloat16 training is not ported (ROADMAP.md §1 item 4); '
-            "use compute_dtype='mixed' or 'float32'")
+    cfg.compute_dtype: 'float32'; 'mixed' (bfloat16 backbones, float32
+    head); or 'bfloat16', the whole model computing in bfloat16 over
+    float32 parameters and statistics, as JAX's create_train_state builds
+    it. sample_batch is the JAX signature's: torch modules need no sample
+    to build, so only its keys are checked."""
+    if cfg.compute_dtype not in ('float32', 'mixed', 'bfloat16'):
+        raise ValueError(f'unknown compute_dtype {cfg.compute_dtype!r}')
     missing = {'rgb', 'depth', 'pcl', 'uvd_gt', 'xyz_gt', 'cam_para',
                'center', 'M', 'cube'} - set(sample_batch)
     if missing:
@@ -190,6 +203,29 @@ def make_train_step(cfg: Config) -> Callable:
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_train_step_scan(cfg: Config) -> Callable:
+    """train_scan(state, batches, generators, epoch=0) -> (state,
+    metrics): G steps of make_train_step, step i on batches' element i
+    (tensors [G, B, ...]) with generators[i] (one generator may stand G
+    times), the metrics stacked [G]. It gives exactly what G calls of
+    the single step give: JAX's lax.scan runs them in one dispatch, here
+    they are a loop."""
+    step = make_train_step(cfg)
+
+    def train_scan(state: TrainState, batches: Batch,
+                   generators: Sequence[Optional[torch.Generator]],
+                   epoch=0):
+        metrics = []
+        for i, generator in enumerate(generators):
+            state, m = step(state, {k: v[i] for k, v in batches.items()},
+                            generator, epoch)
+            metrics.append(m)
+        return state, {k: torch.stack([m[k] for m in metrics])
+                       for k in metrics[0]}
+
+    return train_scan
 
 
 def make_eval_step(cfg: Config) -> Callable:

@@ -18,11 +18,18 @@ released reference state_dict holds every key of the port; load it with
 `strict=False`, since the reference also builds modules its forward never
 uses (the cross decoder's norm1, the skip convs of equal-width Residuals).
 No released checkpoint is in the repository, so that load is untested.
+
+Warm starts (the trainer's `load_model`, `finetune_dir` and `pretrain`):
+`load_torch_checkpoint` reads a `.pth` (`{'model': state_dict}` or a bare
+state_dict, the DataParallel `module.` prefix stripped) and
+`merge_partial` takes from it each tensor the model has under the same
+name and shape, the reference's filtered merge with the JAX package's
+shape gate (keypointfusion_tpu/utils/torch_convert.py:merge_partial).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -228,3 +235,37 @@ def jax_kpfusion_to_state_dict(variables: dict,
         _fusion_block(sd, f'block{i}', p[f'block{i}'], s[f'block{i}'])
         i += 1
     return sd
+
+
+def strip_module_prefix(sd: StateDict) -> StateDict:
+    """The DataParallel `module.` prefix taken off every key."""
+    return {(k[7:] if k.startswith('module.') else k): v
+            for k, v in sd.items()}
+
+
+def merge_partial(init: StateDict, loaded: StateDict
+                  ) -> Tuple[StateDict, List[str], List[str]]:
+    """Every key of `init`, from `loaded` where it holds the key with the
+    same shape, from `init` otherwise (a 21-joint checkpoint then
+    warm-starts a 14-joint model). Returns (merged, used: the keys taken
+    from `loaded`, skipped: those it holds with another shape)."""
+    merged, used, skipped = {}, [], []
+    for key, value in init.items():
+        cand = loaded.get(key)
+        if cand is not None and tuple(cand.shape) == tuple(value.shape):
+            merged[key] = cand
+            used.append(key)
+        else:
+            if cand is not None:
+                skipped.append(key)
+            merged[key] = value
+    return merged, used, skipped
+
+
+def load_torch_checkpoint(path: str) -> StateDict:
+    """A `.pth`'s state_dict on the CPU: `{'model': sd}` (the reference's
+    and the port trainer's checkpoints) or a bare sd, with the `module.`
+    prefix stripped. The port's names are the reference's, so a released
+    checkpoint needs no conversion."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    return strip_module_prefix(ckpt.get('model', ckpt))

@@ -468,7 +468,7 @@ def test_train_step_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('compute_dtype', ['float32', 'mixed'])
+@pytest.mark.parametrize('compute_dtype', ['float32', 'mixed', 'bfloat16'])
 def test_train_step_launches_no_kernel_on_card(cuda_device, compute_dtype):
     """A train step with dropout 0.1 from a CUDA generator, batch 2 at
     full width: finite loss, every launch counter 0."""
@@ -477,3 +477,118 @@ def test_train_step_launches_no_kernel_on_card(cuda_device, compute_dtype):
         cuda_device, Config(compute_dtype=compute_dtype), batch, 0.1)
     assert np.isfinite(loss)
     assert not any(launches.values()), launches
+
+
+def small_trainer(cuda_device, tmp_path, name, **kw):
+    """A float32 Trainer at batch 8 and 256 points on the card: 16
+    training samples (2 steps an epoch), 12 test samples (a batch of 8,
+    then 4 padded)."""
+    import dataclasses
+    from keypointfusion_torch.data.synthetic import synthetic_dataset
+    from keypointfusion_torch.training.trainer import Trainer
+
+    @dataclasses.dataclass(frozen=True)
+    class TwoEpochs(Config):
+        epochs: int = 2
+
+        @property
+        def max_epoch(self) -> int:
+            return self.epochs
+
+    cfg = TwoEpochs(batch_size=8, point_num=256, seed=0, pretrain='', **kw)
+    return Trainer(cfg, synthetic_dataset(16, 256, seed=10),
+                   synthetic_dataset(12, 256, seed=40),
+                   model_dir=str(tmp_path / name), device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_trainer_resume_on_card(cuda_device, tmp_path):
+    """chip_smoke.py's resume check at its size (batch 64, 1024 points,
+    256 training samples, 2 epochs): the restored state is the saved one
+    bit for bit, the resumed run lies within RESUME_TOL of the straight
+    run, and a control resumed without the optimizer's state fails every
+    limit; the restored AdamW step counts are on the host."""
+    import dataclasses
+    from chip_smoke import resume_runs, trainer_state
+    from keypointfusion_torch.data.synthetic import synthetic_dataset
+    from keypointfusion_torch.training.trainer import Trainer
+
+    @dataclasses.dataclass(frozen=True)
+    class TwoEpochs(Config):
+        epochs: int = 2
+
+        @property
+        def max_epoch(self) -> int:
+            return self.epochs
+
+    cfg = TwoEpochs(batch_size=64, point_num=1024, seed=0, pretrain='')
+    train_set = synthetic_dataset(256, 1024, seed=1000)
+    make = lambda name, c=cfg: Trainer(c, train_set,
+                                       model_dir=str(tmp_path / name),
+                                       device=cuda_device)
+    straight = make('straight')
+    start = trainer_state(straight)
+    straight.train()
+    failures, errors, control_errors, resumed = resume_runs(
+        make, cfg, start, trainer_state(straight))
+    assert not failures, (failures, errors, control_errors)
+    # AdamW's step counts stay on the host (on the card each costs a wait)
+    assert all(s['step'].device.type == 'cpu'
+               for s in resumed.state.optimizer.state.values())
+
+
+@pytest.mark.cuda
+def test_device_prefetch_from_pinned_memory(cuda_device):
+    """20 batches through device_prefetch while the consuming stream is
+    kept busy: each equals its host batch, in order. The host arrays are
+    handed over and dropped, so only the prefetcher's pinned buffers hold
+    the data while the copies run."""
+    from keypointfusion_torch.data.pipeline import device_prefetch
+    rng = np.random.RandomState(0)
+    want = [{'x': rng.randn(64, 128, 128).astype(np.float32),
+             'i': np.full((64,), i, np.int64)} for i in range(20)]
+
+    def batches():
+        for w in want:
+            yield {k: v.copy() for k, v in w.items()}
+
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    sums = []
+    for got in device_prefetch(batches(), cuda_device, depth=3):
+        for _ in range(4):
+            busy = busy @ busy / 64.0
+        sums.append({k: v.clone() for k, v in got.items()})
+    torch.cuda.synchronize()
+    assert len(sums) == 20
+    for got, w in zip(sums, want):
+        for k in w:
+            assert np.array_equal(got[k].cpu().numpy(), w[k]), k
+
+
+@pytest.mark.cuda
+def test_trainer_test_kernels_match_plain_on_card(cuda_device, tmp_path):
+    """test() through K1 and K2 'highest' against test() on the plain
+    path, block 2 taking the same inputs on both (chip_smoke.py's
+    Block2Inputs): every stage's error and PA error of every sample and
+    joint within chip_smoke.py's TRAINER_MM_TOL; 2 K2 and 4 K1 launches
+    for its 2 batches."""
+    from chip_smoke import TRAINER_MM_TOL, Block2Inputs
+    from keypointfusion_torch.kernels import desa_dense as k1
+    from keypointfusion_torch.kernels import pixel_sampler as k2
+    trainer = small_trainer(cuda_device, tmp_path, 'test', phase='test')
+    rows = []
+    stage_results = trainer._stage_results
+    trainer._stage_results = lambda batch: rows.append(
+        stage_results(batch)) or rows[-1]
+    block2 = Block2Inputs(trainer.state.model)
+    k1.KERNEL.launches = k2.KERNEL.launches = 0
+    trainer.test()
+    assert (k2.KERNEL.launches, k1.KERNEL.launches) == (2, 4)
+    trainer.state.model.use_kernels = False
+    block2.replay()
+    trainer.test()
+    block2.remove()
+    got, want = rows[:2], rows[2:]
+    for g, w in zip(got, want):
+        assert np.isfinite(g).all()
+        assert np.abs(g[..., :2] - w[..., :2]).max() <= TRAINER_MM_TOL

@@ -220,7 +220,12 @@ def test_port_imports_no_jax():
     them."""
     names = [m.name for m in pkgutil.walk_packages(
         keypointfusion_torch.__path__, 'keypointfusion_torch.')]
-    assert 'keypointfusion_torch.serving' in names
+    assert {'keypointfusion_torch.serving',
+            'keypointfusion_torch.training.trainer',
+            'keypointfusion_torch.training.metrics',
+            'keypointfusion_torch.data.pipeline',
+            'keypointfusion_torch.utils.pretrain',
+            'keypointfusion_torch.utils.provenance'} <= set(names)
     code = ('import sys\n'
             f'for name in {names!r}:\n'
             '    __import__(name)\n'
@@ -231,8 +236,7 @@ def test_port_imports_no_jax():
                    timeout=300)
     sources = sorted((REPO / 'keypointfusion_torch').rglob('*.py'))
     sources += [REPO / 'chip_smoke.py',
-                REPO / 'scripts' / 'torch_serving_profile.py',
-                REPO / 'scripts' / 'torch_train_profile.py']
+                *sorted((REPO / 'scripts').glob('torch_*.py'))]
     for path in sources:
         for mod in _imported_modules(path):
             assert mod.split('.')[0] not in FORBIDDEN, (path, mod)

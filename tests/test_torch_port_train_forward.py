@@ -1,8 +1,8 @@
 """Port parity of KPFusion-resnet-18's train-mode forward and its
 gradients: each module against its flax counterpart on the same inputs
 and weights, the whole model against JAX's op-by-op train-mode `apply`,
-'mixed' against an error budget, and the port's own train-mode contract
-(dropout, stop-gradients).
+'mixed' and full bfloat16 against an error budget, and the port's own
+train-mode contract (dropout, stop-gradients).
 
 Inputs: synthetic_batch(batch_size=2, point_num=256, seed=42). Weights:
 the port's KPFusion from seed 0, its BatchNorm statistics perturbed,
@@ -58,6 +58,12 @@ Tolerances:
     alone: a fault of the port does not widen it. Measured: 0.45 of the
     budget on the outputs, 0.27 on the statistics, 0.08 on the metrics,
     0.50 on the gradients.
+  * 'mixed' and full bfloat16: each output and the loss within twice
+    JAX's own gap between that precision and float32 plus 2^-8 of the
+    scale, the gap taken on the same batch and weights (bfloat16
+    roundings flip soft selections in JAX itself, so no tighter
+    comparison holds); in bfloat16 every gradient finite and non-zero
+    wherever JAX's float32 gradient is.
 """
 
 import numpy as np
@@ -160,9 +166,11 @@ def jax_pass(variables, batch, backbone_dtype=None, grads=True,
 
 def port_pass(sd, batch, dtype=torch.float32, backbone_dtype=None):
     """The port's train-mode forward, compute_losses (epoch 0) and
-    backward in `dtype` (float64: every module in float64 arithmetic).
+    backward in `dtype` (float64: every module in float64 arithmetic;
+    bfloat16: the whole model computing in bfloat16).
     Also returns each block's inputs, for the module tests."""
-    model = KPFusion(dropout=0.0, backbone_dtype=backbone_dtype)
+    model = KPFusion(dropout=0.0, backbone_dtype=backbone_dtype,
+                     dtype=torch.float32 if dtype == torch.float64 else dtype)
     model.load_state_dict(sd)
     if dtype == torch.float64:
         set_compute_dtype(model.double(), torch.float64)
@@ -429,6 +437,42 @@ def test_kpfusion_mixed_train_within_budget(batch, weights, jax_f32):
         jax_gap, gap = err(wm, w), err(g, w)
         assert jax_gap > 0, name
         assert gap <= 2 * jax_gap + 2 ** -8 * scale(w), (name, jax_gap, gap)
+
+
+def test_kpfusion_bfloat16_train_within_budget(batch, weights, jax_f32):
+    """Full bfloat16 (the whole model computing in bfloat16 over float32
+    parameters, JAX's create_train_state with compute_dtype='bfloat16'):
+    each output and the loss within twice JAX's own bfloat16-to-float32
+    gap plus 2^-8 of the scale, the 'mixed' budget; the gradients finite
+    and reaching every parameter JAX's reach."""
+    sd, v = weights
+    jax_bf16 = jax_pass(v, batch, dtype=jnp.bfloat16, grads=False)
+    port = port_pass(sd, batch, dtype=torch.bfloat16)
+    model = port['model']
+    assert model.block1.compute_dtype == torch.bfloat16
+    assert model.backbone_rgb.backbone.conv1.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    pairs = list(zip(OUTPUTS, port['out'], jax_bf16['out'],
+                     jax_f32['out']))
+    pairs.append(('loss', port['metrics']['loss'],
+                  jax_bf16['metrics']['loss'], jax_f32['metrics']['loss']))
+    measured = {}
+    for name, g, wb, w in pairs:
+        jax_gap, gap = err(wb, w), err(g, w)
+        assert jax_gap > 0, name
+        budget = 2 * jax_gap + 2 ** -8 * scale(w)
+        measured[name] = gap / budget
+        assert gap <= budget, (name, jax_gap, gap)
+    port_scale = leaf_errors(port['grads'], port['grads'])
+    reached = 0
+    for path, (_, s) in leaf_errors(jax_f32['grads'],
+                                    jax_f32['grads']).items():
+        g = port_scale[path][1]
+        assert np.isfinite(g), path
+        if s > 0 and not exact_zero_gradient(path):
+            assert g > 0, path
+            reached += 1
+    print('measured (of the budget)', measured, 'gradients', reached)
 
 
 # ------------------------------------------------------- port contract --

@@ -166,50 +166,62 @@ def test_remat_gives_the_same_step(batches):
 
 
 def test_no_stale_cache_after_steps(batches):
-    """'mixed' keeps bfloat16 casts of the backbones' weights and DESA
-    keeps its folded weights, both made under no_grad. After an eval
-    forward that makes them, two train steps and .eval(), the model's
-    plain-path forward, with and without gradients, equals bit for bit
-    that of a fresh model loaded from its state_dict."""
+    """'mixed' and full bfloat16 keep bfloat16 casts of the weights and
+    DESA keeps its folded weights and K1 pack, all made under no_grad.
+    After an eval forward that makes them, two train steps and .eval(),
+    the model's plain-path forward, with and without gradients, equals bit
+    for bit that of a fresh model loaded from its state_dict."""
     batch = batch_to_device(batches[0], 'cpu')
-    cfg = Config(compute_dtype='mixed')
-    state = create_train_state(cfg, batch, device='cpu', seed=0)
-    evaluate = make_eval_step(cfg)
-    state.model.use_kernels = False
-    before = evaluate(state, batch)
-    conv = state.model.backbone_d.backbone.conv1
-    assert conv.__dict__['_casts']['weight'][1].dtype == torch.bfloat16
-    assert '_kernel_weights' in state.model.block1.FA.__dict__
+    for compute_dtype in ('mixed', 'bfloat16'):
+        cfg = Config(compute_dtype=compute_dtype)
+        state = create_train_state(cfg, batch, device='cpu', seed=0)
+        evaluate = make_eval_step(cfg)
+        state.model.use_kernels = False
+        before = evaluate(state, batch)
+        conv = state.model.backbone_d.backbone.conv1
+        assert conv.__dict__['_casts']['weight'][1].dtype == torch.bfloat16
+        assert '_kernel_weights' in state.model.block1.FA.__dict__
+        if compute_dtype == 'bfloat16':
+            linear = state.model.block1.init_TR.cls_head
+            assert linear.__dict__['_casts']['weight'][1].dtype \
+                == torch.bfloat16
 
-    step = make_train_step(cfg)
-    gen = torch.Generator().manual_seed(0)
-    for _ in range(2):
-        state, _ = step(state, batch, gen, 0)
-    fresh = KPFusion(dtype=torch.float32, backbone_dtype=torch.bfloat16,
-                     use_kernels=False)
-    fresh.load_state_dict(state.model.state_dict())
-    fresh.eval()
-    after = evaluate(state, batch)
-    want = evaluate(TrainState(fresh, None, None), batch)
-    graded = state.model(batch['rgb'], batch['depth'], batch['pcl'],
-                         frame_from_batch(batch, cfg))
-    for g, gg, w, b in zip(after[0] + after[1], graded[0] + graded[1],
-                           want[0] + want[1], before[0] + before[1]):
-        assert torch.equal(g, w)
-        assert torch.equal(gg.detach(), w)
-        assert not torch.equal(g, b)
+        step = make_train_step(cfg)
+        gen = torch.Generator().manual_seed(0)
+        for _ in range(2):
+            state, _ = step(state, batch, gen, 0)
+        fresh = KPFusion(dtype=state.model.dtype,
+                         backbone_dtype=state.model.backbone_dtype,
+                         use_kernels=False)
+        fresh.load_state_dict(state.model.state_dict())
+        fresh.eval()
+        after = evaluate(state, batch)
+        want = evaluate(TrainState(fresh, None, None), batch)
+        graded = state.model(batch['rgb'], batch['depth'], batch['pcl'],
+                             frame_from_batch(batch, cfg))
+        for g, gg, w, b in zip(after[0] + after[1], graded[0] + graded[1],
+                               want[0] + want[1], before[0] + before[1]):
+            assert torch.equal(g, w), compute_dtype
+            assert torch.equal(gg.detach(), w), compute_dtype
+            assert not torch.equal(g, b), compute_dtype
 
 
 def test_train_entry_points_device_and_dtype(batches, monkeypatch):
     """Without a card, create_train_state raises unless the CPU is asked
-    for; full bfloat16 training is not ported and raises; a batch without
-    its labels is refused."""
+    for; full bfloat16 builds the whole model in bfloat16 over float32
+    parameters; an unknown compute dtype and a batch without its labels
+    are refused."""
     batch = batch_to_device(batches[0], 'cpu')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         create_train_state(Config(), batch)
-    with pytest.raises(NotImplementedError, match='item 4'):
-        create_train_state(Config(compute_dtype='bfloat16'), batch,
+    bf16 = create_train_state(Config(compute_dtype='bfloat16'), batch,
+                              device='cpu').model
+    assert bf16.dtype == bf16.backbone_dtype == torch.bfloat16
+    assert bf16.block2.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    with pytest.raises(ValueError, match='float16'):
+        create_train_state(Config(compute_dtype='float16'), batch,
                            device='cpu')
     with pytest.raises(ValueError, match='xyz_gt'):
         create_train_state(Config(), {k: v for k, v in batch.items()
