@@ -143,6 +143,22 @@ RESUME_TOL = {'params': 0.5, 'stats': 0.1, 'exp_avg': 0.3, 'exp_avg_sq': 0.05}
 # float32 forward's 1e-4 of scale times the half cube
 TRAINER_MM_TOL = FORWARD_TOL * 125.0
 SERVING_TOL = {'joint_xyz_mm': 1e-4 * 125.0, 'joint_uvd': 1e-4, 'M': 0.0}
+# the [data] phase: the committed DexYCB-layout fixture, and a tree of
+# annotations over its frames (right and left hands in turn) for the CLI
+DATA_FIXTURE = 'tests/fixtures/torch_port_dexycb'
+# annotations: 16 steps of the one epoch. The loader runs DATA_AHEAD
+# batches ahead of the step (BatchLoader's 4 in flight, device_prefetch's
+# 2), so it loads through the first 16 - DATA_AHEAD steps and is done for
+# the rest: the two are reported apart
+DATA_TRAIN = 16 * BATCH
+DATA_AHEAD = 6
+DATA_TEST = BATCH + 8       # a full batch and one of 8, padded
+DATA_THREADS = (1, 2, 4, 8)
+DATA_SCALING_SAMPLES = 2 * BATCH
+# the fixture's samples built here against the JAX package's, stored: rgb
+# bit for bit, every other key within this (normalized units); the CPU
+# test holds all of them bit for bit against the same numpy and scipy
+DATA_SAMPLE_TOL = 1e-5
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
            'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
 
@@ -1555,6 +1571,345 @@ def check_trainer(dev, kernels, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def write_dexycb_tree(root, fixture, n_train, n_test, seed=0):
+    """A DexYCB-layout tree under root whose annotations reference the
+    fixture's four frames (its imgs directory linked) n_train and n_test
+    times: joints jittered from the fixture's by a seed, right and left
+    hands in turn for every frame."""
+    import os
+    base = os.path.join(root, 'DexYCB')
+    os.makedirs(os.path.join(base, 'annotations'))
+    os.symlink(os.path.abspath(os.path.join(fixture, 'DexYCB', 'imgs')),
+               os.path.join(base, 'imgs'))
+    with open(os.path.join(fixture, 'DexYCB', 'annotations',
+                           'DEX_YCB_s0_test_data.json')) as f:
+        db = json.load(f)
+    rng = np.random.RandomState(seed)
+    frames = len(db['images'])
+    for split, n in (('train', n_train), ('test', n_test)):
+        images, anns = [], []
+        for k in range(n):
+            image = dict(db['images'][k % frames], id=k)
+            ann = dict(db['annotations'][k % frames], id=k, image_id=k)
+            ann['joints_coord_cam'] = (np.asarray(ann['joints_coord_cam'])
+                                       + rng.uniform(-8, 8, (21, 3))
+                                       ).tolist()
+            ann['hand_type'] = ('right', 'left')[(k + k // frames) % 2]
+            images.append(image)
+            anns.append(ann)
+        with open(os.path.join(base, 'annotations',
+                               f'DEX_YCB_s0_{split}_data.json'), 'w') as f:
+            json.dump({'images': images, 'annotations': anns}, f)
+
+
+class Prefix:
+    """The first n samples of a dataset."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+
+class StepClock:
+    """While active, every train step made by training/trainer.py's
+    make_train_step records its host start and end times."""
+
+    def __init__(self):
+        self.starts, self.ends = [], []
+
+    def __enter__(self):
+        from keypointfusion_torch.training import trainer as module
+        self.module, self.original = module, module.make_train_step
+
+        def make(cfg):
+            step = self.original(cfg)
+
+            def timed(*args):
+                self.starts.append(time.perf_counter())
+                out = step(*args)
+                self.ends.append(time.perf_counter())
+                return out
+            return timed
+        module.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_train_step = self.original
+
+    def figures(self):
+        """ms: each step's host time, the time from its start to the next
+        step's and the wait for the loader between them; their means over
+        the steps after the first while the loader still loads, and over
+        the last DATA_AHEAD steps, when it is done."""
+        host = [(e - s) * 1e3 for s, e in zip(self.starts, self.ends)]
+        gaps = [(b - a) * 1e3 for a, b in zip(self.starts, self.starts[1:])]
+        waits = [(b - a) * 1e3 for a, b in zip(self.ends, self.starts[1:])]
+        done = len(host) - DATA_AHEAD
+        r = lambda xs: [round(x, 3) for x in xs]
+        mean = lambda xs: round(float(np.mean(xs)), 3)
+        return {'host_ms': r(host), 'step_to_step_ms': r(gaps),
+                'loader_wait_ms': r(waits),
+                'loading': {'steps': [2, done],
+                            'host_ms': mean(host[1:done]),
+                            'step_to_step_ms': mean(gaps[1:done]),
+                            'loader_wait_ms': mean(waits[1:done])},
+                'loader_done': {'steps': [done + 1, len(host)],
+                                'host_ms': mean(host[done:]),
+                                'step_to_step_ms': mean(gaps[done:]),
+                                'loader_wait_ms': mean(waits[done:])}}
+
+
+def printed_errors(text):
+    return [float(v) for v in
+            __import__('re').findall(r'\[mean_Error ([-0-9.]+)\]', text)]
+
+
+def check_data(dev, kernels, card):
+    """The host data path and the command line, on the card's machine
+    (no cv2, no JAX): the committed fixture (tests/fixtures/
+    torch_port_dexycb, scripts/make_torch_port_fixture.py) and a
+    DexYCB-layout tree of DATA_TRAIN / DATA_TEST annotations over its
+    frames in a temporary directory.
+    1. Decoders: each of the fixture's JPEG and PNG-16 files decoded by
+       data/image_io.py against cv2's decode stored beside it (tolerance
+       0: max |d| and the pixels that differ); one thread's ms a decode.
+    2. Samples: the port's DexYCBDataset on the fixture (seed 7, train
+       indices 1, 2 then test 0, 3) against the JAX package's samples
+       stored beside it (DATA_SAMPLE_TOL).
+    3. Loader: __getitem__'s ms a sample on one thread (train and test
+       split), and BatchLoader's samples/s over DATA_SCALING_SAMPLES
+       training samples at DATA_THREADS threads, os.cpu_count() beside.
+    4. Training: keypointfusion_torch.train.main(['--phase', 'train',
+       ...]) on the tree, float32, batch 64, 1024 points, one epoch of
+       DATA_TRAIN / 64 steps (and its test()): each step's host ms, the
+       time from step to step and the wait for the loader (StepClock),
+       then the bare step on one of the loader's batches in the same
+       call, and the loader's ms a batch at 8 threads from 3.; test()'s
+       launches, counters set to 0 just before main() and read just
+       after: K2 'highest' once and K1 'highest' twice a batch.
+    5. Testing: python -m keypointfusion_torch.train --phase test
+       --load_model best --loader_threads 1 as a subprocess: exit code 0,
+       the test split loaded, its K1/K2 'highest' launches from its
+       summary line, and its printed errors against an in-process test()
+       of the same checkpoint (one loader thread too, so that both draw
+       the same point samples) within TRAINER_MM_TOL plus the print
+       unit, its result within TRAINER_MM_TOL."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from keypointfusion_torch import train as cli
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.data.datasets import DexYCBDataset
+    from keypointfusion_torch.data.image_io import DECODER, imread
+    from keypointfusion_torch.data.pipeline import BatchLoader, collate
+    from keypointfusion_torch.training.train_step import (
+        batch_to_device, create_train_state, make_train_step,
+    )
+    from keypointfusion_torch.training.trainer import Trainer
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           DATA_FIXTURE)
+    t0 = time.perf_counter()
+    DECODER.load()
+    decoder_build_s = time.perf_counter() - t0
+
+    # 1. decoders against cv2's decode
+    decoded = np.load(os.path.join(fixture, 'decoded.npz'))
+    imgs = os.path.join(fixture, 'DexYCB', 'imgs')
+    decode = {'max_abs': 0, 'pixels_differing': 0, 'files': 0}
+    decode_ms = {'jpeg': [], 'png16': []}
+    for name in decoded.files:
+        colour = name.startswith('color_')
+        path = os.path.join(imgs, name + ('.jpg' if colour else '.png'))
+        want = decoded[name]
+        got = imread(path, anydepth=not colour)
+        if got is None or got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f'{path}: decoded to '
+                                 f'{None if got is None else got.shape}')
+        diff = np.abs(got.astype(np.int64) - want)
+        decode['max_abs'] = max(decode['max_abs'], int(diff.max()))
+        decode['pixels_differing'] += int(
+            (diff.reshape(diff.shape[0], diff.shape[1], -1) > 0)
+            .any(-1).sum())
+        decode['files'] += 1
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            imread(path, anydepth=not colour)
+            times.append((time.perf_counter() - t) * 1e3)
+        decode_ms['jpeg' if colour else 'png16'].append(
+            float(np.median(times)))
+    if decode['max_abs'] != 0:
+        raise AssertionError(f'decoders differ from cv2: {decode}')
+
+    # 2. the fixture's samples against the JAX package's
+    stored = np.load(os.path.join(fixture, 'samples.npz'))
+    sample_err, bit_for_bit = {}, True
+    for split, indices in (('train', (1, 2)), ('test', (0, 3))):
+        ds = DexYCBDataset('s0', split, fixture, sample_num=1024, seed=7)
+        for i in indices:
+            got = ds[i]
+            for k, v in got.items():
+                want = stored[f'{split}_{i}_{k}']
+                err = float(np.abs(v.astype(np.float64) - want).max())
+                sample_err[k] = max(sample_err.get(k, 0.0), err)
+                bit_for_bit &= bool(np.array_equal(v, want))
+    if sample_err['rgb'] != 0.0 or max(sample_err.values()) > \
+            DATA_SAMPLE_TOL:
+        raise AssertionError(f'samples differ from the JAX package\'s: '
+                             f'{sample_err}')
+
+    root = tempfile.mkdtemp(prefix='kpf_data_')
+    try:
+        write_dexycb_tree(root, fixture, DATA_TRAIN, DATA_TEST)
+        # 3. the loader, one thread, then by threads
+        getitem_ms = {}
+        for split in ('train', 'test'):
+            ds = DexYCBDataset('s0', split, root, sample_num=1024)
+            ds[0]                                   # lazy imports
+            n = min(16, len(ds))
+            t = time.perf_counter()
+            for i in range(n):
+                ds[i]
+            getitem_ms[split] = round((time.perf_counter() - t) / n * 1e3,
+                                      3)
+        scaling = {}
+        for threads in DATA_THREADS:
+            ds = Prefix(DexYCBDataset('s0', 'train', root, sample_num=1024),
+                        DATA_SCALING_SAMPLES)
+            loader = BatchLoader(ds, BATCH, shuffle=True,
+                                 num_workers=threads, seed=0)
+            t = time.perf_counter()
+            n = sum(len(b['rgb']) for b in loader)
+            scaling[threads] = round(n / (time.perf_counter() - t), 2)
+
+        # 4. training through the command line
+        @dataclasses.dataclass(frozen=True)
+        class DataConfig(Config):
+            epochs: int = 1
+
+            @property
+            def max_epoch(self) -> int:
+                return self.epochs
+
+        save = os.path.join(root, 'runs')
+        common = ['--dataset', 'dexycb', '--root_dir', root,
+                  '--batch_size', str(BATCH), '--point_num', '1024',
+                  '--pretrain', '', '--seed', '0', '--save_dir', save,
+                  '--model_save', 'data']
+        out = io.StringIO()
+        reset(kernels)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with StepClock() as clock, contextlib.redirect_stdout(out):
+            trainer, _ = cli.main(['--phase', 'train', *common], device=dev,
+                                  config=DataConfig)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        train_launches = counts(kernels)
+        summary = json.loads(out.getvalue().strip().splitlines()[-1])
+        steps = DATA_TRAIN // BATCH
+        want_test = dict.fromkeys(kernels, 0)
+        want_test.update(pixel_sampler=2, desa_dense=4)
+        if summary['train_samples'] != DATA_TRAIN \
+                or summary['test_samples'] != DATA_TEST \
+                or len(clock.starts) != steps \
+                or trainer.state.step != steps:
+            raise AssertionError(f'the CLI trained {len(clock.starts)} '
+                                 f'steps: {summary}')
+        if train_launches != want_test \
+                or summary['kernel_launches'] != want_test:
+            raise AssertionError(f'train()\'s test() launched '
+                                 f'{train_launches}, expected {want_test}')
+        if not np.isfinite(summary['result']):
+            raise AssertionError(f'training gave {summary["result"]}')
+        trainer_figures = clock.figures()
+
+        # the bare step on one of the loader's batches, same call
+        cfg = DataConfig(batch_size=BATCH, point_num=1024, seed=0,
+                         pretrain='')
+        batch = next(iter(BatchLoader(trainer.train_data, BATCH)))
+        del trainer
+        state = create_train_state(cfg, collate([{
+            k: v[0] for k, v in batch.items()}]), device=dev, seed=0)
+        batch = batch_to_device(batch, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        step = make_train_step(cfg)
+        step(state, batch, gen, 0)                       # warm-up
+        bare = []
+        for _ in range(5):
+            t = time.perf_counter()
+            step(state, batch, gen, 0)
+            bare.append((time.perf_counter() - t) * 1e3)
+        del state, batch
+
+        # 5. --phase test as a subprocess, against test() in-process
+        test_args = ['--phase', 'test', '--load_model', 'best', *common,
+                     '--loader_threads', '1']
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'keypointfusion_torch.train',
+             *test_args], capture_output=True, text=True, timeout=900)
+        test_s = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f'--phase test exited {proc.returncode}:\n'
+                                 f'{proc.stdout[-3000:]}\n'
+                                 f'{proc.stderr[-3000:]}')
+        sub = json.loads(proc.stdout.strip().splitlines()[-1])
+        if sub['test_samples'] != DATA_TEST \
+                or sub['kernel_launches'] != want_test:
+            raise AssertionError(f'--phase test: {sub}, expected '
+                                 f'{DATA_TEST} samples and {want_test}')
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            local = Trainer(cli.parse_config(test_args), device=dev,
+                            loader_threads=1)
+            local_error = local.test()
+        got, want = printed_errors(proc.stdout), printed_errors(
+            out.getvalue())
+        test_vs = {'result_mm': abs(sub['result'] - local_error),
+                   'printed_mm': max((abs(a - b) for a, b in zip(got, want)),
+                                     default=float('inf'))}
+        if len(got) != 6 or len(want) != 6 \
+                or test_vs['result_mm'] > TRAINER_MM_TOL \
+                or test_vs['printed_mm'] > TRAINER_MM_TOL + 1e-3:
+            raise AssertionError(f'--phase test printed {got}, in-process '
+                                 f'{want}: {test_vs}')
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log('data', decoder_build_s=round(decoder_build_s, 3),
+        decode=json.dumps(decode),
+        decode_ms=json.dumps({k: [round(x, 3) for x in v]
+                              for k, v in decode_ms.items()}),
+        samples_max_err=json.dumps(sample_err), sample_tol=DATA_SAMPLE_TOL,
+        samples_bit_for_bit=bit_for_bit,
+        getitem_ms=json.dumps(getitem_ms),
+        loader_samples_per_s=json.dumps(scaling),
+        loader_ms_per_batch_8_threads=round(BATCH / scaling[8] * 1e3, 3),
+        cpu_count=os.cpu_count(), batch=BATCH,
+        train_samples=DATA_TRAIN, test_samples=DATA_TEST,
+        cli_train_s=round(train_s, 3), trainer=json.dumps(trainer_figures),
+        bare_host_ms=json.dumps([round(x, 3) for x in bare]),
+        bare_host_ms_mean=round(float(np.mean(bare)), 3),
+        train_test_launches=json.dumps(train_launches),
+        cli_test=json.dumps({'seconds': round(test_s, 3),
+                             'launches': sub['kernel_launches'],
+                             'result_mm': sub['result'],
+                             'printed_mm': got}),
+        cli_test_vs_in_process=json.dumps(test_vs), tol_mm=TRAINER_MM_TOL,
+        card=json.dumps(card))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1606,6 +1961,7 @@ def main():
     for compute_dtype in ('float32', 'mixed', 'bfloat16'):
         check_train(dev, kernels, card, compute_dtype)
     check_trainer(dev, kernels, card)
+    check_data(dev, kernels, card)
 
     replaces = {'pixel_sampler': 'pixel_sampler_pallas.py:212',
                 'desa_dense': 'desa_dense_pallas.py:257',

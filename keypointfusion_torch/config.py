@@ -1,13 +1,12 @@
 """Configuration for the PyTorch port of KeypointFusion.
 
-The fields the serving path, the train step and the trainer read, with
-the names and defaults of the JAX package's `Config`
+The fields the serving path, the train step, the trainer and the data
+loaders read, with the names and defaults of the JAX package's `Config`
 (keypointfusion_tpu/config.py), which mirror the reference config
 singleton. The port keeps its own copy so that it imports nothing from the
-JAX package. The data-augmentation fields come with the data loaders.
-`flatten_opt` is left out: it only picks optax's moment layout (one raveled
-vector or one per leaf), and torch's optimizers keep their moments per
-tensor.
+JAX package. `flatten_opt` is left out: it only picks optax's moment
+layout (one raveled vector or one per leaf), and torch's optimizers keep
+their moments per tensor.
 """
 
 import dataclasses
@@ -49,8 +48,10 @@ class Config:
 
     net: str = 'KPFusion-resnet-18'   # only resnet-18 is ported so far
     dataset: str = 'dexycb'           # ['nyu', 'STB', 'dexycb', 'ho3d']
+    ho3d_version: str = 'v2'
     model_save: str = ''
     save_dir: str = './'
+    dexycb_setup: str = 's0'
     pretrain: str = '1k'
     # on-disk ImageNet checkpoint (file or directory) behind `pretrain`;
     # when empty the torch hub cache is searched and a miss keeps the
@@ -64,7 +65,12 @@ class Config:
 
     batch_size: int = 64
     input_size: int = 128
+    center_type: str = 'refine'
     loss_type: str = 'L1Loss'         # ['L1Loss', 'Mse']
+    # the train split's augmentation: sigma of the CoM shift (mm), of the
+    # cube scale, and the rotation range (degrees); colour jitter factor
+    augment_para: Tuple[float, float, float] = (10., 0.2, 180.)
+    color_factor: float = 0.2
 
     lr: float = 8e-4
     opt: str = 'adamw'                # ['sgd', 'adam', 'adamw']

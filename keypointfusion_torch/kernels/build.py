@@ -12,6 +12,12 @@ stale library is never loaded.
 Every C entry point launches on the stream it is given and returns
 cudaGetLastError() as an int; `CudaKernel.launch` raises when that is not
 0 and counts the launches that succeeded.
+
+Host code of the data path (csrc/host/*.cc, the image decoders) takes the
+same road with g++ (`HostLibrary`): built at first use into _build/ under
+a name that hashes its source and flags, bound with ctypes, which
+releases the GIL for the call. Without g++ it raises; there is no Python
+stand-in.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
@@ -32,6 +39,7 @@ CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+GXX_FLAGS = ('-std=c++17', '-O3', '-shared', '-fPIC')
 
 
 def _nvcc() -> str:
@@ -133,3 +141,58 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
     if failed:
         raise RuntimeError(failed)
     return times
+
+
+class HostLibrary:
+    """A host C++ source under csrc/host/ with `extern "C"` entry points,
+    compiled by g++ at first use and bound with ctypes. `functions` maps
+    each entry point to its argtypes; every one returns an int."""
+
+    def __init__(self, source: str, functions: Dict[str, Sequence]):
+        self.source = CSRC_DIR / 'host' / source
+        self.functions = {k: list(v) for k, v in functions.items()}
+        self._lib = None
+        self._lock = threading.Lock()
+
+    @property
+    def library(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + ' '.join(GXX_FLAGS).encode()
+                                ).hexdigest()[:16]
+        return BUILD_DIR / f'{self.source.stem}-{digest}.so'
+
+    def _build(self):
+        gxx = shutil.which('g++')
+        if gxx is None:
+            raise RuntimeError(f'g++ not found: {self.source.name} is built '
+                               f'with g++ at first use')
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library.with_suffix(f'.{os.getpid()}.tmp')
+        done = subprocess.run([gxx, *GXX_FLAGS, '-o', str(tmp),
+                               str(self.source)], capture_output=True,
+                              text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f'g++ failed for {self.source.name}:\n'
+                               f'{done.stdout}{done.stderr}')
+        os.replace(tmp, self.library)
+
+    def load(self):
+        """Build (if missing) and bind every entry point; thread-safe."""
+        with self._lock:
+            if self._lib is None:
+                if not self.library.exists():
+                    self._build()
+                lib = ctypes.CDLL(str(self.library))
+                for symbol, argtypes in self.functions.items():
+                    fn = getattr(lib, symbol)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                self._lib = lib
+        return self._lib
+
+    def function(self, symbol: str):
+        """The bound entry point `symbol`."""
+        if symbol not in self.functions:
+            raise KeyError(f'{symbol} is not an entry point of '
+                           f'{self.source.name}')
+        return getattr(self.load(), symbol)

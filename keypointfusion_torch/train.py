@@ -1,0 +1,94 @@
+"""Command line of the port: train, test or evaluate KPFusion on a dataset
+(port of the repository's train.py over keypointfusion_torch's Config).
+
+    python -m keypointfusion_torch.train --phase train --dataset dexycb \\
+        --root_dir DATA --batch_size 64
+    python -m keypointfusion_torch.train --phase test --dataset dexycb \\
+        --root_dir DATA --load_model best
+
+Every bool, str, int and float field of the Config is a flag of its own
+name (bools take 1/true/yes/y, anything else is false), as in train.py;
+tuple fields keep their defaults. One flag is not a Config field:
+--loader_threads, the data loader's threads (8, as train.py's trainer;
+1 makes the draws of augmentations and point samples, and so test()'s
+errors, repeat from run to run). The phase picks Trainer.train(),
+test() or evaluation(); the trainer loads cfg.dataset's splits from
+--root_dir and runs on the CUDA card (`main(argv, device='cpu')` runs on
+the CPU). Float32 means float32 there: main() turns TF32 off for
+cuBLAS and cuDNN (PyTorch lets cuDNN's convolutions take TF32 by
+default), as the port's parity checks run. The XLA compile cache that
+train.py turns on has no counterpart. After the phase, one JSON line
+gives the phase, the samples of each split, the phase's result and the
+launches of each CUDA kernel in it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Optional, Sequence
+
+from keypointfusion_torch.config import Config
+
+
+def _str2bool(v) -> bool:
+    return str(v).lower() in ('1', 'true', 'yes', 'y')
+
+
+def _parse(argv, config):
+    parser = argparse.ArgumentParser(
+        prog='python -m keypointfusion_torch.train')
+    for f in dataclasses.fields(config):
+        if isinstance(f.default, bool):
+            parser.add_argument(f'--{f.name}', type=_str2bool,
+                                default=f.default)
+        elif isinstance(f.default, (str, int, float)):
+            parser.add_argument(f'--{f.name}', type=type(f.default),
+                                default=f.default)
+    parser.add_argument('--loader_threads', type=int, default=8)
+    args = vars(parser.parse_args(argv))
+    threads = args.pop('loader_threads')
+    return config(**args), threads
+
+
+def parse_config(argv: Optional[Sequence[str]] = None,
+                 config=Config) -> Config:
+    """A `config` (the Config class, or a dataclass derived from it) from
+    command-line flags (sys.argv[1:] when argv is None)."""
+    return _parse(argv, config)[0]
+
+
+def main(argv: Optional[Sequence[str]] = None, device=None, config=Config):
+    """Run the phase that the flags name; returns (trainer, result)."""
+    import torch
+    from keypointfusion_torch.kernels import desa_dense, grouped_mlp_pool, \
+        pixel_sampler
+    from keypointfusion_torch.training.trainer import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = (pixel_sampler.KERNEL, desa_dense.KERNEL,
+               pixel_sampler.SERVING_KERNEL, desa_dense.SERVING_KERNEL,
+               grouped_mlp_pool.KERNEL)
+    cfg, threads = _parse(argv, config)
+    if cfg.phase not in ('train', 'test', 'eval'):
+        raise ValueError(f'unknown phase {cfg.phase}')
+    trainer = Trainer(cfg, device=device, loader_threads=threads)
+    before = {k.name: k.launches for k in kernels}
+    if cfg.phase == 'train':
+        result = trainer.train()
+    elif cfg.phase == 'test':
+        result = trainer.test()
+    else:
+        result = trainer.evaluation()
+    sizes = {name: (len(data) if data is not None else None)
+             for name, data in (('train_samples', trainer.train_data),
+                                ('test_samples', trainer.test_data))}
+    print(json.dumps({'phase': cfg.phase, **sizes, 'result': result,
+                      'kernel_launches': {k.name: k.launches - before[k.name]
+                                          for k in kernels}}))
+    return trainer, result
+
+
+if __name__ == '__main__':
+    main()

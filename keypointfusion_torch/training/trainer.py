@@ -21,11 +21,17 @@ Trainer).
     AUC printouts, the test_{i}.txt / id.txt dumps, the last partial
     batch padded; evaluation(): the HO3D dump, padded the same way.
 
-Datasets are given to the trainer (`train_data`, `test_data`: indexable
-samples of numpy arrays, synthetic_batch's keys): the data loaders are
-not ported (ROADMAP.md §1 item 11), and `train_data=None` with
-phase='train' raises. The multi-card `mesh` option waits for ROADMAP.md
-§1 item 18.
+Datasets (`train_data`, `test_data`: indexable samples of numpy arrays,
+synthetic_batch's keys) are given to the trainer, or loaded from
+cfg.root_dir by data/datasets.py:make_dataset(cfg, split) as the JAX
+trainer does: the train split when phase='train' and no train_data is
+given, the test split when phase is 'train' or 'test' and no test_data
+is given. A test split that fails to load leaves test_data None, as in
+the JAX trainer, but the failure is logged to train.log and printed.
+phase='eval' loads what evaluation() reads: HO3D's 'evaluation' split
+(the reference's codalab split) or the test split of the others; the JAX
+trainer loads nothing there, and its evaluation() fails on None. The
+multi-card `mesh` option waits for ROADMAP.md §1 item 18.
 
 config.json holds the run's values (dataclasses.asdict); the JAX trainer
 writes vars(type(cfg)), the dataclass's defaults.
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from keypointfusion_torch.config import Config
+from keypointfusion_torch.data.datasets import make_dataset
 from keypointfusion_torch.data.pipeline import (
     BatchLoader, collate, device_prefetch,
 )
@@ -156,19 +163,33 @@ class Trainer:
     """Construction: the sample batch, the state (weights from cfg.seed),
     then the warm starts in the JAX trainer's order (cfg.pretrain,
     cfg.load_model, cfg.finetune_dir) and cfg.resume. The model runs on
-    the CUDA card unless `device` names another."""
+    the CUDA card unless `device` names another.
+
+    `loader_threads` is BatchLoader's thread count (8, the JAX trainer's).
+    A dataset draws its augmentations and point samples from one RNG in
+    the order the threads reach it, so with more than one thread the
+    draws, and test()'s errors, follow the threads' timing (in the JAX
+    trainer too); with 1 they are the same from run to run."""
 
     def __init__(self, cfg: Config, train_data=None, test_data=None,
-                 model_dir: Optional[str] = None, device=None):
-        if train_data is None and cfg.phase == 'train':
-            raise NotImplementedError(
-                'Trainer(train_data=None) would load cfg.dataset from '
-                'cfg.root_dir, and the data loaders are not ported '
-                '(ROADMAP.md §1 item 11): pass train_data')
+                 model_dir: Optional[str] = None, device=None,
+                 loader_threads: int = 8):
         self.cfg = cfg
+        self.device = resolve_device(device)
+        self.loader_threads = loader_threads
+        if train_data is None and cfg.phase == 'train':
+            train_data = make_dataset(cfg, 'train')
+        test_error = None
+        if test_data is None and cfg.phase in ('train', 'test'):
+            try:
+                test_data = make_dataset(cfg, 'test')
+            except Exception as e:   # the JAX trainer goes on without it
+                test_error = e
+        elif test_data is None and cfg.phase == 'eval':
+            test_data = make_dataset(
+                cfg, 'evaluation' if cfg.dataset == 'ho3d' else 'test')
         self.train_data = train_data
         self.test_data = test_data
-        self.device = resolve_device(device)
 
         self.model_dir = model_dir or osp.join(
             cfg.save_dir, 'checkpoint', cfg.dataset,
@@ -180,6 +201,11 @@ class Trainer:
         logging.basicConfig(
             filename=osp.join(self.model_dir, 'train.log'),
             level=logging.INFO, force=False)
+        if test_error is not None:
+            logging.error('the test split of %s did not load; test() is '
+                          'off: %r', cfg.dataset, test_error)
+            print(f'Trainer: the test split of {cfg.dataset} did not load '
+                  f'({test_error!r}); test() is off')
         self.logger = MetricsLogger(osp.join(self.model_dir, 'runs'))
         self.ckpt = Checkpointer(osp.join(self.model_dir, 'ckpt'))
 
@@ -261,7 +287,8 @@ class Trainer:
         cfg = self.cfg
         for epoch in range(self.start_epoch, cfg.max_epoch):
             loader = BatchLoader(self.train_data, cfg.batch_size,
-                                 shuffle=True, num_workers=8,
+                                 shuffle=True,
+                                 num_workers=self.loader_threads,
                                  seed=cfg.seed + epoch)
             generator = self.epoch_generator(epoch)
             t0 = time.time()
@@ -378,7 +405,8 @@ class Trainer:
         padded; each batch's count of real samples appended to n_real
         before the batch is handed out."""
         loader = BatchLoader(data, self.cfg.batch_size, shuffle=False,
-                             num_workers=8, drop_last=False)
+                             num_workers=self.loader_threads,
+                             drop_last=False)
 
         def padded():
             for raw in loader:
@@ -412,8 +440,8 @@ class Trainer:
         last stage's mean error."""
         if self.test_data is None:
             raise RuntimeError(
-                'no test split: pass test_data (the data loaders are not '
-                'ported, ROADMAP.md §1 item 11)')
+                'no test split: pass test_data, or a cfg.root_dir that '
+                'holds the test split of cfg.dataset')
         n_stage = len(self.cfg.stage_type)
         err_sum = np.zeros(n_stage)
         pa_sum = np.zeros(n_stage)

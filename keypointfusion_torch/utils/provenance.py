@@ -22,7 +22,7 @@ import subprocess
 import numpy as np
 import torch
 
-SOURCE_SUFFIXES = ('.py', '.cu', '.cuh')
+SOURCE_SUFFIXES = ('.py', '.cu', '.cuh', '.cc')
 ENTRY_SCRIPTS = ('chip_smoke.py', 'scripts/torch_*.py')
 
 

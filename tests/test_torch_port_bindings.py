@@ -8,7 +8,10 @@ binding's argtypes to it (the kernels', K1 'default''s groups-only entry
 point's, the info entry points of both K1 kernels, both K2 kernels and
 K3), kind
 by kind: a pointer or a stream is a c_void_p, a float a c_float, an int a
-c_int.
+c_int. The host image decoders (csrc/host/image_decode.cc, bound in
+data/image_io.py) are held the same way: they run in the CPU tests, but
+a pointer bound as an int is cut to 32 bits only where the buffer lies
+above 4 GiB, which a test may never see.
 """
 
 import ctypes
@@ -16,6 +19,7 @@ import re
 
 import pytest
 
+from keypointfusion_torch.data.image_io import DECODER
 from keypointfusion_torch.kernels import desa_dense as k1
 from keypointfusion_torch.kernels import grouped_mlp_pool as k3
 from keypointfusion_torch.kernels import pixel_sampler as k2
@@ -34,6 +38,8 @@ for _m, _k in ((k1, k1.KERNEL), (k1, k1.SERVING_KERNEL), (k2, k2.KERNEL),
 BINDINGS[k3.KERNEL.name + '_info'] = (k3.KERNEL.source,
                                       k3.KERNEL.symbol + '_info',
                                       k3.INFO_ARGTYPES)
+for _symbol, _argtypes in DECODER.functions.items():
+    BINDINGS[_symbol] = (DECODER.source, _symbol, _argtypes)
 
 
 def c_parameter_kinds(source: str, symbol: str):
@@ -58,3 +64,14 @@ def c_parameter_kinds(source: str, symbol: str):
 def test_binding_matches_c_entry_point(name):
     source, symbol, argtypes = BINDINGS[name]
     assert list(argtypes) == c_parameter_kinds(source.read_text(), symbol)
+
+
+def test_every_decoder_entry_point_is_bound():
+    """Each `extern "C"` entry point of the host decoders has a binding,
+    and the library that g++ builds exports it."""
+    text = DECODER.source.read_text()
+    assert set(re.findall(r'extern "C" int (\w+)\s*\(', text)) == set(
+        DECODER.functions)
+    lib = DECODER.load()
+    for symbol in DECODER.functions:
+        assert getattr(lib, symbol).argtypes == DECODER.functions[symbol]

@@ -592,3 +592,60 @@ def test_trainer_test_kernels_match_plain_on_card(cuda_device, tmp_path):
     for g, w in zip(got, want):
         assert np.isfinite(g).all()
         assert np.abs(g[..., :2] - w[..., :2]).max() <= TRAINER_MM_TOL
+
+
+@pytest.mark.cuda
+def test_data_path_on_card_machine(cuda_device, tmp_path):
+    """The committed DexYCB fixture (tests/fixtures/torch_port_dexycb) on
+    the card's machine, which has no cv2 and no JAX: the port decodes its
+    images to the stored cv2 decode, bit for bit, and builds the stored
+    JAX samples (rgb bit for bit, the rest within chip_smoke.py's
+    DATA_SAMPLE_TOL); then the trainer loads a tree over its frames
+    (batch 8, 256 points, 16 training and 12 test annotations) and trains
+    one epoch on the card, its test() launching K2 'highest' once and K1
+    'highest' twice a batch."""
+    import dataclasses
+    import os
+    from chip_smoke import DATA_FIXTURE, DATA_SAMPLE_TOL, write_dexycb_tree
+    from keypointfusion_torch.data.datasets import DexYCBDataset
+    from keypointfusion_torch.data.image_io import imread
+    from keypointfusion_torch.kernels import desa_dense as k1
+    from keypointfusion_torch.kernels import pixel_sampler as k2
+    from keypointfusion_torch.training.trainer import Trainer
+
+    fixture = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), DATA_FIXTURE)
+    decoded = np.load(os.path.join(fixture, 'decoded.npz'))
+    for name in decoded.files:
+        colour = name.startswith('color_')
+        path = os.path.join(fixture, 'DexYCB', 'imgs',
+                            name + ('.jpg' if colour else '.png'))
+        assert np.array_equal(imread(path, anydepth=not colour),
+                              decoded[name]), name
+    stored = np.load(os.path.join(fixture, 'samples.npz'))
+    for split, indices in (('train', (1, 2)), ('test', (0, 3))):
+        ds = DexYCBDataset('s0', split, fixture, sample_num=1024, seed=7)
+        for i in indices:
+            for k, v in ds[i].items():
+                want = stored[f'{split}_{i}_{k}']
+                tol = 0.0 if k == 'rgb' else DATA_SAMPLE_TOL
+                assert np.abs(v.astype(np.float64) - want).max() <= tol, k
+
+    @dataclasses.dataclass(frozen=True)
+    class OneEpoch(Config):
+        epochs: int = 1
+
+        @property
+        def max_epoch(self) -> int:
+            return self.epochs
+
+    root = str(tmp_path / 'data')
+    write_dexycb_tree(root, fixture, 16, 12)
+    trainer = Trainer(OneEpoch(root_dir=root, batch_size=8, point_num=256,
+                               seed=0, pretrain=''),
+                      model_dir=str(tmp_path / 'run'), device=cuda_device)
+    assert (len(trainer.train_data), len(trainer.test_data)) == (16, 12)
+    k1.KERNEL.launches = k2.KERNEL.launches = 0
+    assert np.isfinite(trainer.train())
+    assert trainer.state.step == 2
+    assert (k2.KERNEL.launches, k1.KERNEL.launches) == (2, 4)

@@ -203,7 +203,8 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
                                      torch.zeros(1, 21, 128))
 
 
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'keypointfusion_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'keypointfusion_tpu', 'cv2',
+             'PIL', 'imageio')
 
 
 def _imported_modules(path: Path):
@@ -216,7 +217,8 @@ def _imported_modules(path: Path):
 
 def test_port_imports_no_jax():
     """Importing every module of the port loads neither JAX nor the JAX
-    package, and no source of the port or of its card scripts imports
+    package, nor an image library (cv2, PIL, imageio: the card's machine
+    has none), and no source of the port or of its card scripts imports
     them."""
     names = [m.name for m in pkgutil.walk_packages(
         keypointfusion_torch.__path__, 'keypointfusion_torch.')]
@@ -225,7 +227,12 @@ def test_port_imports_no_jax():
             'keypointfusion_torch.training.metrics',
             'keypointfusion_torch.data.pipeline',
             'keypointfusion_torch.utils.pretrain',
-            'keypointfusion_torch.utils.provenance'} <= set(names)
+            'keypointfusion_torch.utils.provenance',
+            'keypointfusion_torch.data.image_io',
+            'keypointfusion_torch.data.cv_ops',
+            'keypointfusion_torch.data.preprocessing',
+            'keypointfusion_torch.data.datasets',
+            'keypointfusion_torch.train'} <= set(names)
     code = ('import sys\n'
             f'for name in {names!r}:\n'
             '    __import__(name)\n'

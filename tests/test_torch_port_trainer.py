@@ -433,7 +433,8 @@ def test_imagenet_pretrain_stem_gate(tmp_path):
 def test_snapshot_sources_and_guards(tmp_path):
     """snapshot_sources copies the port's sources and entry script, not
     `_build/`, with a MANIFEST of the versions; train_data=None in the
-    train phase raises, naming the ROADMAP item."""
+    train phase loads cfg.dataset from cfg.root_dir, and raises naming the
+    missing annotation file where the root holds none."""
     pkg = tmp_path / 'pkg'
     (pkg / '_build').mkdir(parents=True)
     (pkg / 'csrc').mkdir()
@@ -456,5 +457,6 @@ def test_snapshot_sources_and_guards(tmp_path):
     manifest = json.loads((real / 'MANIFEST.json').read_text())
     assert {'torch', 'cuda', 'numpy'} <= set(manifest['versions'])
 
-    with pytest.raises(NotImplementedError, match='item 11'):
-        Trainer(Config(), device='cpu', model_dir=str(tmp_path / 'run'))
+    with pytest.raises(FileNotFoundError, match='DEX_YCB_s0_train_data'):
+        Trainer(Config(root_dir=str(tmp_path / 'no_data')), device='cpu',
+                model_dir=str(tmp_path / 'run'))
