@@ -16,11 +16,15 @@ point on one request's data), and K3's own entry point,
 desa_apply_inference; the train step in float32, 'mixed' and bfloat16
 (check_train: one step on the card against the CPU, 13 steps at batch
 64 timed, no kernel launched in them, then an eval step through K1 and
-K2); and the trainer (check_trainer: training/trainer.py's Trainer for 2
+K2); the trainer (check_trainer: training/trainer.py's Trainer for 2
 epochs, its resume against the straight run, its test() through the
-kernels against the plain path, evaluation()). Weights are random, drawn
-from a seed. Every phase prints one
-line; then a JSON line describing each kernel, the card's name and power
+kernels against the plain path, evaluation()); the host data path and
+the command line (check_data); the demo (check_demo: ModelRGBD at batch
+1 on a fixture frame and the JAX demo's synthetic frame, and demo.main());
+and the config's other backbones (check_backbones: KPFusion-convnext-T
+and KPFusion-resnet-50 through the forward, both engines and, for
+ConvNeXt-T, the train step). Weights are random, drawn from a seed.
+Every phase prints one line; then a JSON line describing each kernel, the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
 device it exits 1 and prints no result.
@@ -159,6 +163,18 @@ DATA_SCALING_SAMPLES = 2 * BATCH
 # bit for bit, every other key within this (normalized units); the CPU
 # test holds all of them bit for bit against the same numpy and scipy
 DATA_SAMPLE_TOL = 1e-5
+# the [demo] phase: ModelRGBD on the fixture's test frame 0, its joints
+# through the kernels against the plain path (normalized units: uvd, and
+# xyz in half cubes), and its host ms a frame, the median of DEMO_FRAMES
+# after DEMO_WARMUP
+DEMO_TOL = 1e-4
+DEMO_WARMUP = 3
+DEMO_FRAMES = 20
+# the [backbones] phase: the config's other backbones at batch 64; the
+# ConvNeXt one also trains: its card-against-CPU step at this batch
+BACKBONE_NETS = ('KPFusion-convnext-T', 'KPFusion-resnet-50')
+BACKBONE_TRAIN_NET = 'KPFusion-convnext-T'
+BACKBONE_TRAIN_BATCH = 8
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
            'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
 
@@ -825,64 +841,77 @@ def forward(model, inputs, use_kernels):
     return [t.float() for t in res + sw]
 
 
-def check_forward(dev, batch):
-    """KPFusion-resnet-18, batch 64. float32: through the kernels and
+def forward_check(dev, batch, net):
+    """KPFusion `net` at batch 64. float32: through the kernels and
     through the plain path, per output, to 1e-4 of its scale. bfloat16
     (the same weights): through the kernels, against the float32 path,
     within twice the bfloat16 plain path's distance from it plus 2^-8 of
-    the scale (the budget of tests/test_torch_port_serving_bf16.py)."""
+    the scale (the budget of tests/test_torch_port_serving_bf16.py).
+    Returns (the float32 outputs, {output: float32 error}, {output:
+    [bfloat16 kernels' gap, bfloat16 plain gap, kernels vs plain]})."""
     import torch
     from keypointfusion_torch.config import Config
     from keypointfusion_torch.models.kpfusion import build_kpfusion
 
     inputs = model_inputs(batch, dev)
-    model = build_kpfusion(Config(), device=dev, seed=0, dtype=torch.float32)
+    model = build_kpfusion(Config(net=net), device=dev, seed=0,
+                           dtype=torch.float32)
     got, want = forward(model, inputs, True), forward(model, inputs, False)
     errs = {}
     for name, g, w in zip(OUTPUTS, got, want):
         if not torch.isfinite(g).all():
-            raise AssertionError(f'{name} is not finite')
+            raise AssertionError(f'{net} {name} is not finite')
         err = float((g - w).abs().max())
         errs[name] = err
         tol = FORWARD_TOL * max(1.0, float(w.abs().max()))
         if not err <= tol:
-            raise AssertionError(f'forward {name}: kernels differ from the '
-                                 f'plain path by {err} > {tol}')
-    log('forward float32', batch=BATCH,
-        shapes=json.dumps([tuple(r.shape) for r in got[:6]]),
-        max_abs_err=max(errs.values()), per_output=json.dumps(errs))
+            raise AssertionError(f'{net} forward {name}: kernels differ '
+                                 f'from the plain path by {err} > {tol}')
 
-    model_bf = build_kpfusion(Config(), device=dev, seed=0,
+    model_bf = build_kpfusion(Config(net=net), device=dev, seed=0,
                               dtype=torch.bfloat16)
     got_bf = forward(model_bf, inputs, True)
     plain_bf = forward(model_bf, inputs, False)
     gaps = {}
     for name, g, p, w in zip(OUTPUTS, got_bf, plain_bf, want):
         if not torch.isfinite(g).all():
-            raise AssertionError(f'bfloat16 {name} is not finite')
+            raise AssertionError(f'{net} bfloat16 {name} is not finite')
         gap = float((g - w).abs().max())
         plain_gap = float((p - w).abs().max())
         gaps[name] = [gap, plain_gap, float((g - p).abs().max())]
         budget = 2 * plain_gap + 2 ** -8 * max(1.0, float(w.abs().max()))
         if not gap <= budget:
-            raise AssertionError(f'bfloat16 forward {name}: {gap} from '
-                                 f'float32, over the budget {budget}')
+            raise AssertionError(f'{net} bfloat16 forward {name}: {gap} '
+                                 f'from float32, over the budget {budget}')
+    return got, errs, gaps
+
+
+def check_forward(dev, batch):
+    """KPFusion-resnet-18's forward_check, one line per dtype."""
+    got, errs, gaps = forward_check(dev, batch, 'KPFusion-resnet-18')
+    log('forward float32', batch=BATCH,
+        shapes=json.dumps([tuple(r.shape) for r in got[:6]]),
+        max_abs_err=max(errs.values()), per_output=json.dumps(errs))
     log('forward bfloat16', batch=BATCH,
         kernels_vs_f32_plain_vs_f32_kernels_vs_plain=json.dumps(gaps))
 
 
-def check_serving(dev, kernels, card, dtype):
-    """A main path: StreamingEngine in `dtype` answers REQUESTS requests,
-    with every launch counter set to 0 just before and read just after.
-    First, one request through the kernels against the plain path, with
-    the same point draws: float32 to SERVING_TOL, bfloat16 within the
-    budget against the float32 engine's answer."""
+def serve(dev, kernels, dtype, net):
+    """A main path: StreamingEngine of KPFusion `net` in `dtype` answers
+    REQUESTS requests, with every launch counter set to 0 just before and
+    read just after. First, one request through the kernels against the
+    plain path, with the same point draws: float32 to SERVING_TOL,
+    bfloat16 within the budget against the float32 engine's answer.
+    Returns the phase line's fields: requests, frames, seconds,
+    frames_per_s, launches, and for bfloat16 the pixels K2 'default'
+    selects per point."""
     import torch
     from keypointfusion_torch.config import Config
     from keypointfusion_torch.data.synthetic import synthetic_frames
     from keypointfusion_torch.serving import StreamingEngine
 
-    eng = StreamingEngine(Config(), batch_size=BATCH, img_hw=(480, 640),
+    cfg = Config(net=net)
+    eng = StreamingEngine(cfg, batch_size=BATCH, img_hw=(480, 640),
                           dtype=dtype, seed=0)
     rng = np.random.RandomState(0)
     requests = [synthetic_frames(BATCH, rng=rng)
@@ -923,22 +952,22 @@ def check_serving(dev, kernels, card, dtype):
         for key, tol in SERVING_TOL.items():
             err = float(np.abs(got[key] - want[key]).max())
             if not err <= tol:
-                raise AssertionError(f'serving {key}: kernels differ from '
-                                     f'the plain path by {err} > {tol}')
+                raise AssertionError(f'{net} serving {key}: kernels differ '
+                                     f'from the plain path by {err} > {tol}')
     else:
-        eng32 = StreamingEngine(Config(), state_dict=eng.model.state_dict(),
+        eng32 = StreamingEngine(cfg, state_dict=eng.model.state_dict(),
                                 batch_size=BATCH, img_hw=(480, 640),
                                 dtype=torch.float32)
         ref = answer(eng32, False)
         del eng32
         if not np.array_equal(got['M'], ref['M']):
-            raise AssertionError('bfloat16 serving changed the crop')
+            raise AssertionError(f'{net} bfloat16 serving changed the crop')
         for key, unit in (('joint_xyz_mm', 125.0), ('joint_uvd', 1.0)):
             gap = float(np.abs(got[key] - ref[key]).max())
             budget = 2 * float(np.abs(want[key] - ref[key]).max()) \
                 + 2 ** -8 * unit
             if not gap <= budget:
-                raise AssertionError(f'bfloat16 serving {key}: {gap} from '
+                raise AssertionError(f'{net} bfloat16 serving {key}: {gap} from '
                                      f'float32, over the budget {budget}')
 
     list(eng.process_stream(iter(requests[:1])))         # warm-up
@@ -951,29 +980,41 @@ def check_serving(dev, kernels, card, dtype):
     launches = counts(kernels)
 
     if len(outs) != REQUESTS:
-        raise AssertionError(f'{len(outs)} answers to {REQUESTS} requests')
+        raise AssertionError(f'{net}: {len(outs)} answers to {REQUESTS} '
+                             'requests')
     for o in outs:
         if o['joint_xyz_mm'].shape != (BATCH, 21, 3) \
                 or o['joint_uvd'].shape != (BATCH, 21, 3) \
                 or o['M'].shape != (BATCH, 3, 3):
-            raise AssertionError('unexpected output shapes')
+            raise AssertionError(f'{net}: unexpected output shapes')
         if not all(np.isfinite(v).all() for v in o.values()):
-            raise AssertionError('non-finite serving output')
+            raise AssertionError(f'{net}: non-finite serving output')
     suffix = '' if dtype == torch.float32 else '_serving'
     want_launches = dict.fromkeys(kernels, 0)
     want_launches['pixel_sampler' + suffix] = REQUESTS
     want_launches['desa_dense' + suffix] = 2 * REQUESTS
     if launches != want_launches:
-        raise AssertionError(f'launches {launches}, expected '
+        raise AssertionError(f'{net} launches {launches}, expected '
                              f'{want_launches}')
     frames = REQUESTS * BATCH
-    log(f'serving {str(dtype).split(".")[-1]}', requests=REQUESTS,
-        frames=frames, seconds=round(seconds, 4),
-        frames_per_s=round(frames / seconds, 1),
-        launches=json.dumps(launches), card=json.dumps(card),
+    return dict(requests=REQUESTS, frames=frames, seconds=round(seconds, 4),
+                frames_per_s=round(frames / seconds, 1), launches=launches,
+                **({} if dtype == torch.float32 else
+                   {'k2_default_selected_per_point': spread}))
+
+
+def check_serving(dev, kernels, card, dtype):
+    """serve() of KPFusion-resnet-18, one line."""
+    import torch
+    stats = serve(dev, kernels, dtype, 'KPFusion-resnet-18')
+    log(f'serving {str(dtype).split(".")[-1]}', requests=stats['requests'],
+        frames=stats['frames'], seconds=stats['seconds'],
+        frames_per_s=stats['frames_per_s'],
+        launches=json.dumps(stats['launches']), card=json.dumps(card),
         **({} if dtype == torch.float32 else
-           {'k2_default_selected_per_point': json.dumps(spread)}))
-    return launches
+           {'k2_default_selected_per_point': json.dumps(
+               stats['k2_default_selected_per_point'])}))
+    return stats['launches']
 
 
 class Block2Inputs:
@@ -1071,39 +1112,25 @@ def step_grads(model):
             .detach().cpu().double() for k, p in model.named_parameters()}
 
 
-def check_train(dev, kernels, card, compute_dtype):
-    """A main path: the train step of KPFusion-resnet-18 in
-    `compute_dtype` ('float32', TF32 off; 'mixed': bfloat16 backbones; or
-    'bfloat16': the whole model).
-    1. One SGD-momentum step at batch 2 with 256 points, dropout 0, on the
-       card and on the CPU (the port's own step; this machine has no JAX)
-       from the same weights: the loss, every parameter, every running
-       statistic, the update over all parameters and the statistics'
-       change within TRAIN_TOL, and the controls (TRAIN_CONTROLS) outside
-       it.
-    2. Batch 64, 1024 points, full width, AdamW, dropout 0.1 from a CUDA
-       generator: TRAIN_WARMUP steps, then TRAIN_STEPS timed by CUDA
-       events; peak memory; every loss finite. The launch counters, set to
-       0 before the steps, read 0 after them (the kernels are eval-only).
-    3. .eval() and one eval step on the trained weights, counters set to 0
-       just before: K2 once and K1 once per block, in their 'highest'
-       modes under a float32 head ('float32', 'mixed'), within FORWARD_TOL
-       of the plain path, block 2 taking the same inputs on both paths
-       (Block2Inputs); in their 'default' modes in 'bfloat16', within
-       check_forward's bfloat16 budget against the float32 plain path on
-       the same weights."""
+def card_vs_cpu_step(dev, compute_dtype, net, batch_size):
+    """One SGD-momentum step of KPFusion `net` at `batch_size` with 256
+    points, dropout 0, on the card and on the CPU (the port's own step;
+    this machine has no JAX) from the same weights: the loss, every
+    parameter, every running statistic, the update over all parameters
+    and the statistics' change within TRAIN_TOL[compute_dtype], and the
+    controls (TRAIN_CONTROLS) outside it. Returns the phase line's
+    'card_vs_cpu' dict."""
     import torch
     from keypointfusion_torch.config import Config
     from keypointfusion_torch.data.synthetic import synthetic_batch
-    from keypointfusion_torch.models.kpfusion import build_kpfusion
     from keypointfusion_torch.training.train_step import (
-        TrainState, batch_to_device, create_train_state, make_eval_step,
-        make_train_step,
+        batch_to_device, create_train_state, make_train_step,
     )
 
     tol = TRAIN_TOL[compute_dtype]
-    cfg = Config(compute_dtype=compute_dtype, opt='sgd', lr=TRAIN_LR)
-    small = synthetic_batch(batch_size=2, point_num=256, seed=42)
+    cfg = Config(net=net, compute_dtype=compute_dtype, opt='sgd',
+                 lr=TRAIN_LR)
+    small = synthetic_batch(batch_size=batch_size, point_num=256, seed=42)
     stepped = []
     for where in ('cpu', dev):
         b = batch_to_device(small, where)
@@ -1116,8 +1143,8 @@ def check_train(dev, kernels, card, compute_dtype):
     (cpu_model, cpu_loss, start), (card_model, card_loss, card_start) = \
         stepped
     if any(not torch.equal(card_start[k], t) for k, t in start.items()):
-        raise AssertionError(f'train {compute_dtype}: the card and the CPU '
-                             f'start from different weights')
+        raise AssertionError(f'train {net} {compute_dtype}: the card and '
+                             f'the CPU start from different weights')
     loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
     failures, errors, controls = train_step_failures(
         state64(card_model), state64(cpu_model), start,
@@ -1126,12 +1153,35 @@ def check_train(dev, kernels, card, compute_dtype):
         failures.append('loss')
     if failures:
         raise AssertionError(
-            f'train {compute_dtype}: the card step differs from the CPU '
-            f'step: {failures}; loss {loss_err}, {errors}, controls '
+            f'train {net} {compute_dtype}: the card step differs from the '
+            f'CPU step: {failures}; loss {loss_err}, {errors}, controls '
             f'{controls}; tolerance {tol}')
-    del stepped, cpu_model, card_model, start, card_start
+    return {'batch': batch_size, 'lr': TRAIN_LR, 'loss_rel': loss_err,
+            'worst_param_over_tol': errors['param'][0],
+            'param': errors['param'][1],
+            'worst_stat_over_tol': errors['stat'][0],
+            'stat': errors['stat'][1], 'update_rel': errors['update'],
+            'own_update_rel': errors['own_update'],
+            'stat_change_rel': errors['stat_change'],
+            'controls': {str(f): c for f, c in controls.items()},
+            'tol': tol}
 
-    cfg = Config(compute_dtype=compute_dtype)
+
+def timed_train_steps(dev, kernels, compute_dtype, net):
+    """KPFusion `net`'s train step at batch 64, 1024 points, full width,
+    AdamW, dropout 0.1 from a CUDA generator: TRAIN_WARMUP steps, then
+    TRAIN_STEPS timed by CUDA events; peak memory; every loss finite. The
+    launch counters, set to 0 before the steps, read 0 after them (the
+    kernels are eval-only). Returns (state, batch, cfg, the phase line's
+    fields)."""
+    import torch
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.data.synthetic import synthetic_batch
+    from keypointfusion_torch.training.train_step import (
+        batch_to_device, create_train_state, make_train_step,
+    )
+
+    cfg = Config(net=net, compute_dtype=compute_dtype)
     batch = batch_to_device(
         synthetic_batch(batch_size=BATCH, point_num=1024, seed=2), dev)
     state = create_train_state(cfg, batch, device=dev, seed=0)
@@ -1158,10 +1208,41 @@ def check_train(dev, kernels, card, compute_dtype):
     step_launches = counts(kernels)
     losses = [float(x) for x in losses]
     if not np.isfinite(losses).all():
-        raise AssertionError(f'train {compute_dtype}: losses {losses}')
+        raise AssertionError(f'train {net} {compute_dtype}: losses {losses}')
     if any(step_launches.values()):
-        raise AssertionError(f'train {compute_dtype}: the train steps '
+        raise AssertionError(f'train {net} {compute_dtype}: the train steps '
                              f'launched {step_launches}')
+    return state, batch, cfg, {
+        'ms_per_step': round(ms, 3), 'timed_steps': TRAIN_STEPS,
+        'peak_gib': round(peak_gib, 3),
+        'losses': [round(x, 5) for x in losses],
+        'step_launches': step_launches}
+
+
+def check_train(dev, kernels, card, compute_dtype):
+    """A main path: the train step of KPFusion-resnet-18 in
+    `compute_dtype` ('float32', TF32 off; 'mixed': bfloat16 backbones; or
+    'bfloat16': the whole model).
+    1. card_vs_cpu_step at batch 2.
+    2. timed_train_steps at batch 64.
+    3. .eval() and one eval step on the trained weights, counters set to 0
+       just before: K2 once and K1 once per block, in their 'highest'
+       modes under a float32 head ('float32', 'mixed'), within FORWARD_TOL
+       of the plain path, block 2 taking the same inputs on both paths
+       (Block2Inputs); in their 'default' modes in 'bfloat16', within
+       check_forward's bfloat16 budget against the float32 plain path on
+       the same weights."""
+    import torch
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.models.kpfusion import build_kpfusion
+    from keypointfusion_torch.training.train_step import (
+        TrainState, make_eval_step,
+    )
+
+    net = 'KPFusion-resnet-18'
+    card_vs_cpu = card_vs_cpu_step(dev, compute_dtype, net, 2)
+    state, batch, cfg, timed = timed_train_steps(dev, kernels,
+                                                 compute_dtype, net)
 
     evaluate = make_eval_step(cfg)
     head_f32 = state.model.dtype == torch.float32
@@ -1211,20 +1292,10 @@ def check_train(dev, kernels, card, compute_dtype):
                                  f'differ from the plain path by '
                                  f'{errs[name]} > {limit}')
     log('train', dtype=compute_dtype, batch=BATCH, points=1024,
-        card_vs_cpu=json.dumps({
-            'batch': 2, 'lr': TRAIN_LR, 'loss_rel': loss_err,
-            'worst_param_over_tol': errors['param'][0],
-            'param': errors['param'][1],
-            'worst_stat_over_tol': errors['stat'][0],
-            'stat': errors['stat'][1], 'update_rel': errors['update'],
-            'own_update_rel': errors['own_update'],
-            'stat_change_rel': errors['stat_change'],
-            'controls': {str(f): c for f, c in controls.items()},
-            'tol': tol}),
-        ms_per_step=round(ms, 3), timed_steps=TRAIN_STEPS,
-        peak_gib=round(peak_gib, 3),
-        losses=json.dumps([round(x, 5) for x in losses]),
-        step_launches=json.dumps(step_launches),
+        card_vs_cpu=json.dumps(card_vs_cpu),
+        ms_per_step=timed['ms_per_step'], timed_steps=TRAIN_STEPS,
+        peak_gib=timed['peak_gib'], losses=json.dumps(timed['losses']),
+        step_launches=json.dumps(timed['step_launches']),
         eval_launches=json.dumps(eval_launches),
         eval_max_abs_err=max(errs.values()), card=json.dumps(card))
     del state
@@ -1910,6 +1981,190 @@ def check_data(dev, kernels, card):
         card=json.dumps(card))
 
 
+def demo_frame(index=0, pad=12):
+    """(input dict, camera) of the DexYCB fixture's test frame `index`
+    (DATA_FIXTURE): colour and depth read by data/image_io.py, the bbox
+    around its annotated joints projected to pixels, padded by `pad`."""
+    import os
+    from keypointfusion_torch.data.image_io import imread
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        DATA_FIXTURE, 'DexYCB')
+    with open(os.path.join(root, 'annotations',
+                           'DEX_YCB_s0_test_data.json')) as f:
+        ann = json.load(f)['annotations'][index]
+    (fx, fy), (fu, fv) = (ann['cam_param']['focal'],
+                          ann['cam_param']['princpt'])
+    xyz = np.asarray(ann['joints_coord_cam'])
+    u = xyz[:, 0] * fx / xyz[:, 2] + fu
+    v = xyz[:, 1] * fy / xyz[:, 2] + fv
+    bbox = [u.min() - pad, v.min() - pad, np.ptp(u) + 2 * pad,
+            np.ptp(v) + 2 * pad]
+    imgs = os.path.join(root, 'imgs')
+    rgb = imread(os.path.join(imgs, f'color_{index:06d}.jpg'))
+    depth = imread(os.path.join(imgs, f'aligned_depth_to_color_'
+                                      f'{index:06d}.png'), anydepth=True)
+    return ({'rgb': rgb, 'depth': depth.astype(np.float32), 'bbox': bbox,
+             'hand_type': 'right'}, (fx, fy, fu, fv))
+
+
+def demo_normalized(model, meta, out):
+    """A ModelRGBD answer back in normalized units: stage 2's uvd (the
+    full-frame pixels through the crop's M, depth about the centre, in
+    half cubes) and the last stage's world joints in half cubes."""
+    from keypointfusion_torch.data.preprocessing import transform_points_2d
+    uvd = transform_points_2d(out['joint_uvd'], meta['img2bb_trans'])
+    half = model.cube[0] / 2
+    uvd[:, :2] = uvd[:, :2] / model.img_size * 2 - 1
+    uvd[:, 2] = (out['joint_uvd'][:, 2] - meta['center'][2]) / half
+    return uvd, out['joint_xyz'] * 1000 / half
+
+
+def check_demo(dev, kernels, card):
+    """A main path: the demo (keypointfusion_torch/demo.py) on the card,
+    KPFusion-resnet-18 in float32 at 1024 points (weights from seed 0),
+    on the fixture's test frame 0 (demo_frame) and on the JAX demo's
+    synthetic frame (demo.smoke_frame), with every launch counter set to
+    0 just before each frame's ModelRGBD.estimate_pose_rgbd and read just
+    after: K2 'highest' once and K1 'highest' twice, at batch 1. Its
+    joints against use_kernels=False on the same point draws within
+    DEMO_TOL (demo_normalized); finite outputs of the JAX demo's shapes;
+    host ms a frame on the fixture frame (the median of DEMO_FRAMES after
+    DEMO_WARMUP, the host's preprocessing included). Then demo.main()
+    (root demo_RGBD.py's CLI) on the fixture frame's files writes its
+    four PNGs, which read back as its meta arrays."""
+    import os
+    import shutil
+    import tempfile
+    from keypointfusion_torch import demo
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.data.image_io import imread
+
+    t0 = time.perf_counter()
+    want_launches = dict.fromkeys(kernels, 0)
+    want_launches.update({'pixel_sampler': 1, 'desa_dense': 2})
+    errs = {}
+    for name, (inp, cam) in (('fixture', demo_frame(0)),
+                             ('smoke', demo.smoke_frame())):
+        model = demo.ModelRGBD(Config(phase='test'), cam, device=dev)
+
+        def answer(use_kernels):
+            model.np_rng = np.random.RandomState(model.cfg.seed)
+            model.model.use_kernels = use_kernels
+            try:
+                meta, out = model.estimate_pose_rgbd([inp])
+            finally:
+                model.model.use_kernels = True
+            return meta[0], out[0]
+
+        answer(True)                           # warm-up, builds the packs
+        reset(kernels)
+        meta, got = answer(True)
+        launches = counts(kernels)
+        if launches != want_launches:
+            raise AssertionError(f'demo {name}: launches {launches}, '
+                                 f'expected {want_launches}')
+        _, want = answer(False)
+        if got['joint_uvd'].shape != (21, 3) \
+                or got['joint_xyz'].shape != (21, 3) \
+                or meta['pose_d'].shape != (128, 128, 3) \
+                or got['mesh_uvd'] is not None:
+            raise AssertionError(f'demo {name}: unexpected output shapes')
+        if not (np.isfinite(got['joint_uvd']).all()
+                and np.isfinite(got['joint_xyz']).all()):
+            raise AssertionError(f'demo {name}: non-finite joints')
+        errs[name] = [float(np.abs(g - w).max()) for g, w in zip(
+            demo_normalized(model, meta, got),
+            demo_normalized(model, meta, want))]
+        if not max(errs[name]) <= DEMO_TOL:
+            raise AssertionError(f'demo {name}: kernels differ from the '
+                                 f'plain path by {errs[name]} (uvd, xyz) > '
+                                 f'{DEMO_TOL}')
+    inp, cam = demo_frame(0)
+    model = demo.ModelRGBD(Config(phase='test'), cam, device=dev)
+
+    for _ in range(DEMO_WARMUP):
+        model.estimate_pose_rgbd([inp])
+    frame_ms = []
+    for _ in range(DEMO_FRAMES):
+        t = time.perf_counter()
+        model.estimate_pose_rgbd([inp])        # ends on the host's copy
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+
+    out_dir = tempfile.mkdtemp(prefix='kpf_demo_')
+    try:
+        imgs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            DATA_FIXTURE, 'DexYCB', 'imgs')
+        x, y, w, h = inp['bbox']
+        cli_meta, cli_out = demo.main(
+            ['--rgb', os.path.join(imgs, 'color_000000.jpg'),
+             '--depth', os.path.join(imgs, 'aligned_depth_to_color_000000'
+                                           '.png'),
+             '--bbox', *(str(v) for v in (x + w / 2, y + h / 2, w, h)),
+             '--fx', str(cam[0]), '--fy', str(cam[1]), '--fu', str(cam[2]),
+             '--fv', str(cam[3]), '--out_dir', out_dir], device=dev)
+        written = {}
+        for key, name in demo.OUTPUT_FILES.items():
+            arr = cli_meta[0][key]
+            back = imread(os.path.join(out_dir, name),
+                          anydepth=arr.ndim == 2)
+            written[name] = list(arr.shape)
+            if not np.array_equal(back, arr):
+                raise AssertionError(f'demo.main: {name} reads back '
+                                     f'otherwise')
+        if not np.isfinite(cli_out[0]['joint_xyz']).all():
+            raise AssertionError('demo.main: non-finite joints')
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log('demo', net='KPFusion-resnet-18', dtype='float32', points=1024,
+        frames='fixture test 0 (480x640), smoke (720x1280)',
+        launches_per_frame=json.dumps(launches),
+        kernels_vs_plain_uvd_xyz=json.dumps(errs), tol=DEMO_TOL,
+        ms_per_frame_median=round(float(np.median(frame_ms)), 3),
+        ms_per_frame_range=json.dumps([round(min(frame_ms), 3),
+                                       round(max(frame_ms), 3)]),
+        frames_timed=DEMO_FRAMES, main_png=json.dumps(written),
+        seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
+
+def check_backbones(dev, kernels, card, batch):
+    """The config's other backbones, KPFusion-convnext-T and
+    KPFusion-resnet-50 (BACKBONE_NETS), at batch 64, weights from seed 0:
+    1. forward_check: float32 through the kernels against the plain path
+       within FORWARD_TOL, bfloat16 within its budget.
+    2. Main paths: serve() in float32 and in bfloat16, each engine over
+       REQUESTS requests of 480x640 frames with every launch counter set
+       to 0 just before and read just after (K2 once and K1 twice a
+       request, in the engine's modes); frames/s as smoke figures.
+    3. KPFusion-convnext-T also trains: card_vs_cpu_step in float32 at
+       BACKBONE_TRAIN_BATCH under TRAIN_TOL, then timed_train_steps in
+       float32 and 'mixed' (ms a step, peak memory, no launch).
+    One line, a JSON object by net."""
+    import torch
+    t0 = time.perf_counter()
+    nets = {}
+    for net in BACKBONE_NETS:
+        t1 = time.perf_counter()
+        _, errs, gaps = forward_check(dev, batch, net)
+        entry = {'forward_float32_max_abs_err': max(errs.values()),
+                 'forward_bfloat16_gaps': gaps}
+        for dtype in (torch.float32, torch.bfloat16):
+            entry[f'serving_{str(dtype).split(".")[-1]}'] = serve(
+                dev, kernels, dtype, net)
+        if net == BACKBONE_TRAIN_NET:
+            entry['train_card_vs_cpu_float32'] = card_vs_cpu_step(
+                dev, 'float32', net, BACKBONE_TRAIN_BATCH)
+            for compute_dtype in ('float32', 'mixed'):
+                state, _, _, timed = timed_train_steps(dev, kernels,
+                                                       compute_dtype, net)
+                del state
+                entry[f'train_{compute_dtype}'] = timed
+        entry['seconds'] = round(time.perf_counter() - t1, 2)
+        nets[net] = entry
+        torch.cuda.empty_cache()
+    log('backbones', batch=BATCH, nets=json.dumps(nets),
+        seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1927,7 +2182,7 @@ def main():
     kernels = {k.name: k for k in (k2.KERNEL, k1.KERNEL, k2.SERVING_KERNEL,
                                    k1.SERVING_KERNEL, k3.KERNEL)}
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     times = build.build(kernels.values())
     for k in kernels.values():
         k.load()                          # bind now, not inside a timing
@@ -1962,6 +2217,8 @@ def main():
         check_train(dev, kernels, card, compute_dtype)
     check_trainer(dev, kernels, card)
     check_data(dev, kernels, card)
+    check_demo(dev, kernels, card)
+    check_backbones(dev, kernels, card, batch)
 
     replaces = {'pixel_sampler': 'pixel_sampler_pallas.py:212',
                 'desa_dense': 'desa_dense_pallas.py:257',
@@ -1974,6 +2231,7 @@ def main():
             replaces='keypointfusion_tpu/kernels/' + replaces[
                 name.replace('_serving', '')],
             launches=launches[name], library_ms=None, **stats[name]))
+    log('done', seconds=round(time.perf_counter() - t_start, 2))
     print(json.dumps({'kernels': rows}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

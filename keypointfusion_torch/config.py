@@ -46,7 +46,7 @@ class Config:
     phase: str = 'train'              # ['train', 'test', 'eval']
     root_dir: str = './data'
 
-    net: str = 'KPFusion-resnet-18'   # only resnet-18 is ported so far
+    net: str = 'KPFusion-resnet-18'   # or resnet-50/101/152, convnext-T/S/B/L
     dataset: str = 'dexycb'           # ['nyu', 'STB', 'dexycb', 'ho3d']
     ho3d_version: str = 'v2'
     model_save: str = ''

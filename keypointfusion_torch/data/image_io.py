@@ -26,6 +26,11 @@ outside that (interlaced or palette PNG, progressive, arithmetic-coded,
 of another format, or a damaged one (bad CRC, bad zlib or Huffman data,
 a missing IEND) gives None, as cv2 gives; `decode_png` and `decode_jpeg`
 raise CorruptImage for it instead.
+
+`imwrite(path, img)` writes a PNG, the counterpart of the demos'
+cv2.imwrite: uint8 grey [H, W] (or [H, W, 1]), BGR [H, W, 3] or BGRA
+[H, W, 4], and uint16 grey, filter 0 and stdlib zlib. Its bytes are not
+cv2's, but cv2.imread and `imread` give the array back bit for bit.
 """
 
 from __future__ import annotations
@@ -150,6 +155,47 @@ def decode_jpeg(data: bytes, anydepth: bool = False) -> np.ndarray:
         buf.ctypes.data, len(buf), int(anydepth), out.ctypes.data, err,
         _ERR_LEN), err)
     return out
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack('>I', len(body)) + kind + body
+            + struct.pack('>I', zlib.crc32(kind + body)))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The PNG file of a uint8 grey, BGR or BGRA image or a uint16 grey
+    one (see imwrite)."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] in (3, 4):
+        color, rows = (2 if img.shape[2] == 3 else 6), img.copy()
+        rows[..., :3] = img[..., 2::-1]                # BGR -> RGB
+    elif img.dtype in (np.uint8, np.uint16) and img.ndim == 2:
+        color, rows = 0, img.astype(img.dtype.newbyteorder('>'))
+    else:
+        raise ValueError(f'PNG writing takes uint8 grey, BGR or BGRA or '
+                         f'uint16 grey images, got {img.dtype} {img.shape}')
+    height, width = img.shape[:2]
+    if height == 0 or width == 0:
+        raise ValueError('an empty image has no PNG')
+    raw = rows.reshape(height, -1).view(np.uint8)
+    scanlines = np.concatenate([np.zeros((height, 1), np.uint8), raw], 1)
+    header = struct.pack('>IIBBBBB', width, height, 8 * img.itemsize, color,
+                         0, 0, 0)
+    return (PNG_SIGNATURE + _png_chunk(b'IHDR', header)
+            + _png_chunk(b'IDAT', zlib.compress(scanlines.tobytes()))
+            + _png_chunk(b'IEND', b''))
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """cv2.imwrite(path, img) for a `.png` path; raises ValueError for
+    another extension or an image PNG writing does not take."""
+    if not path.lower().endswith('.png'):
+        raise ValueError(f'{path}: only PNG files are written')
+    data = encode_png(img)
+    with open(path, 'wb') as f:
+        f.write(data)
 
 
 def imread(path: str, anydepth: bool = False) -> Optional[np.ndarray]:

@@ -1,10 +1,11 @@
 """KPFusion: the dual-backbone RGB-D keypoint fusion model (port of
 keypointfusion_tpu/models/kpfusion.py).
 
-Outputs follow the reference's `result` list,
-[img_offset, img_offset_rgb, b1_3d, b1_2d, b2_3d, b2_2d], aligned with the
-reference config's stage_type = (1,1,2,3,2,3), plus one spatial-weight map
-per block.
+The backbones are the net name's (`backbone`): ResNet UNets of depth
+18/50/101/152 or ConvNeXt UNets T/S/B/L. Outputs follow the reference's
+`result` list, [img_offset, img_offset_rgb, b1_3d, b1_2d, b2_3d, b2_2d],
+aligned with the reference config's stage_type = (1,1,2,3,2,3), plus one
+spatial-weight map per block.
 
 Precision policy (the JAX module's): `dtype` is the fusion head's compute
 dtype and `backbone_dtype` (None: `dtype`) the backbones'; parameters and
@@ -54,12 +55,23 @@ from keypointfusion_torch.geometry.pcl import (
 from keypointfusion_torch.kernels.pixel_sampler import (
     sample_pixel_features_fused, sample_pixel_features_plain,
 )
+from keypointfusion_torch.models.convnext import ConvNeXtUNet
 from keypointfusion_torch.models.fusion_block import FusionBlock
 from keypointfusion_torch.models.layers import set_compute_dtype
 from keypointfusion_torch.models.unet import ResNetUNet
 from keypointfusion_torch.ops.codecs import offset_to_joint_weight
 from keypointfusion_torch.ops.resize import resize_nearest_torch
 from keypointfusion_torch.utils.device import resolve_device
+
+
+def backbone(net: str, in_channels: int, dim: int, out_dims):
+    """The UNet backbone the net's name picks, as the JAX module's
+    `_backbone`: 'KPFusion-convnext-T' (T/S/B/L or tiny/small/base/large)
+    or 'KPFusion-resnet-18' (18/50/101/152)."""
+    size = net.split('-')[-1]
+    if 'convnext' in net:
+        return ConvNeXtUNet(in_channels, size, dim, out_dims)
+    return ResNetUNet(in_channels, int(size), dim, out_dims)
 
 
 class KPFusion(nn.Module):
@@ -70,18 +82,14 @@ class KPFusion(nn.Module):
                  backbone_dtype: Optional[torch.dtype] = None,
                  dropout: float = 0.1):
         super().__init__()
-        if 'resnet' not in net:
-            raise NotImplementedError(f'{net}: only ResNet backbones are '
-                                      'ported so far')
-        depth = int(net.split('-')[-1])
         j = joint_num
         self.joint_num = j
         self.use_kernels = use_kernels
         self.dtype = dtype
         self.backbone_dtype = backbone_dtype or dtype
         out_dims = (3 * j, j, j)
-        self.backbone_d = ResNetUNet(1, depth, dim, out_dims)
-        self.backbone_rgb = ResNetUNet(3, depth, dim, out_dims)
+        self.backbone_d = backbone(net, 1, dim, out_dims)
+        self.backbone_rgb = backbone(net, 3, dim, out_dims)
         set_compute_dtype(self.backbone_d, self.backbone_dtype)
         set_compute_dtype(self.backbone_rgb, self.backbone_dtype)
         self.num_stages = num_stages
@@ -101,9 +109,9 @@ class KPFusion(nn.Module):
         j = self.joint_num
         dt, bb = self.dtype, self.backbone_dtype
         img_offset, img_feat = (
-            t.to(dt) for t in self.backbone_d(depth.to(bb)))
+            t.to(dt) for t in self.backbone_d(depth.to(bb), generator))
         img_offset_rgb, img_feat_rgb = (
-            t.to(dt) for t in self.backbone_rgb(rgb.to(bb)))
+            t.to(dt) for t in self.backbone_rgb(rgb.to(bb), generator))
         b, h = img_feat.shape[0], img_feat.shape[1]
 
         joint_uvd = offset_to_joint_weight(img_offset, depth,

@@ -15,7 +15,10 @@ compute dtype, and `model.to(torch.bfloat16)` is never used:
   * BatchNorm (models/norm.py) and LayerNorm (flax nn.LayerNorm): the
     statistics and the normalization in float32, the result cast. torch's
     layer_norm takes the variance in two passes where flax takes
-    E[x^2] - mean^2; the two differ at float32 rounding.
+    E[x^2] - mean^2; the two differ at float32 rounding where |mean| is
+    of the order of the spread, and flax's loses digits where it is far
+    larger (tests/test_torch_port_backbones.py measures both against
+    float64).
 `set_compute_dtype(module, dtype)` sets the compute dtype of every layer
 and block of a module tree that has one. Without gradients a parameter's
 cast is made once and kept (`cast_param`), so a bfloat16 forward launches

@@ -8,7 +8,7 @@ names are the reference's (hourglass Residual with its `Conv` wrapper, so
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -55,33 +55,43 @@ class Residual(nn.Module):
         return y + (x if self.skip_layer is None else self.skip_layer(x))
 
 
+def final_convs(deconv_dim: int, out_dims: Sequence[int]) -> nn.ModuleList:
+    """The dense heads: 1x1 convs drawn from normal(0, 0.001), zero bias
+    (the JAX package's final_init)."""
+    finals = nn.ModuleList(Conv2d(deconv_dim, od, 1) for od in out_dims)
+    for conv in finals:
+        nn.init.normal_(conv.weight, std=0.001)
+        nn.init.zeros_(conv.bias)
+    return finals
+
+
 class ResNetUNet(nn.Module):
     """For a 128x128 crop: img_result [B,32,32,sum(out_dims)] and
     img_feature [B,32,32,deconv_dim], NHWC. in_channels 1 is the depth
-    stem, 3 the RGB stem."""
+    stem, 3 the RGB stem. The skip inputs are the encoder's widths, 4x
+    ResNet-18's for the Bottleneck depths."""
 
     def __init__(self, in_channels: int, depth: int = 18,
                  deconv_dim: int = 128,
                  out_dims: Sequence[int] = (63, 21, 21)):
         super().__init__()
         self.backbone = ResNet(depth, in_channels)
-        self.up4 = nn.Sequential(Residual(512, 512))
-        self.skip_layer4 = Residual(256, 256)
+        exp = self.backbone.expansion
+        self.up4 = nn.Sequential(Residual(512 * exp, 512))
+        self.skip_layer4 = Residual(256 * exp, 256)
         self.fusion_layer4 = Residual(768, 256)
         self.up3 = nn.Sequential(Residual(256, 256))
-        self.skip_layer3 = Residual(128, 128)
+        self.skip_layer3 = Residual(128 * exp, 128)
         self.fusion_layer3 = Residual(384, 128)
         self.up2 = nn.Sequential(Residual(128, 128))
-        self.skip_layer2 = Residual(64, 64)
+        self.skip_layer2 = Residual(64 * exp, 64)
         self.fusion_layer2 = Residual(192, deconv_dim)
-        self.finals = nn.ModuleList(
-            Conv2d(deconv_dim, od, 1) for od in out_dims)
-        for conv in self.finals:
-            nn.init.normal_(conv.weight, std=0.001)
-            nn.init.zeros_(conv.bias)
+        self.finals = final_convs(deconv_dim, out_dims)
 
-    def forward(self, x):
-        """x [B,S,S,Cin] -> (img_result, img_feature), NHWC."""
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """x [B,S,S,Cin] -> (img_result, img_feature), NHWC. `generator` is
+        unused: it is ConvNeXtUNet's DropPath generator, taken so both
+        backbone families have one call."""
         _, c1, c2, c3, c4 = self.backbone(x.permute(0, 3, 1, 2))
         c4_up = upsample_bilinear_x2(self.up4(c4))
         c3_fusion = self.fusion_layer4(

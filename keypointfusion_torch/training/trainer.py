@@ -56,7 +56,9 @@ from keypointfusion_torch.data.pipeline import (
     BatchLoader, collate, device_prefetch,
 )
 from keypointfusion_torch.data.synthetic import synthetic_batch
-from keypointfusion_torch.geometry.camera import uvd_nl_to_xyz_nl
+from keypointfusion_torch.geometry.camera import (
+    uvd_nl_to_xyz_nl, xyz_nl_to_uvd_nl,
+)
 from keypointfusion_torch.ops.codecs_extra import feature_to_joint
 from keypointfusion_torch.training.metrics import (
     auc_subset, pa_error_mm, pck_curve, xyz_to_error_mm,
@@ -68,6 +70,7 @@ from keypointfusion_torch.training.train_step import (
 from keypointfusion_torch.utils.device import resolve_device
 from keypointfusion_torch.utils.pretrain import imagenet_backbone_state_dict
 from keypointfusion_torch.utils.provenance import snapshot_sources
+from keypointfusion_torch.utils.vis import draw_2d_pose, draw_2d_pose_rgb
 from keypointfusion_torch.utils.weights import (
     load_torch_checkpoint, merge_partial,
 )
@@ -493,17 +496,37 @@ class Trainer:
                                           for i in range(n_stage)})
         return float(err_sum[-1] / nb)
 
+    def _log_eval_images(self, batch, joint_xyz, step: int):
+        """'eval_img' (the depth crop, BGR) and 'eval_img_rgb' (the colour
+        crop, RGB) with the last stage's skeleton of the batch's first
+        sample, CHW in [0, 1] (JAX trainer.py:518-537, reference
+        train.py:451-457)."""
+        frame = frame_from_batch(batch, self.cfg)
+        uvd = xyz_nl_to_uvd_nl(joint_xyz.float(), frame)[0].cpu().numpy()
+        depth = draw_2d_pose(batch['depth'][0].cpu().numpy(), uvd,
+                             self.cfg.dataset)
+        self.logger.tb.add_image(
+            'eval_img', np.transpose(depth, (2, 0, 1)) / 255.0,
+            global_step=step)
+        rgb = draw_2d_pose_rgb(batch['rgb'][0].cpu().numpy(), uvd,
+                               self.cfg.dataset)
+        self.logger.tb.add_image(
+            'eval_img_rgb', np.transpose(rgb[..., ::-1], (2, 0, 1)) / 255.0,
+            global_step=step)
+
     def evaluation(self, eval_data=None, out_path: Optional[str] = None):
         """The HO3D codalab dump (pred.json): the last stage's world-mm
         joints in HO3D's joint order, flipped by [1, -1, -1] and in
         metres, and zero meshes. The last partial batch is padded, as in
-        test(). The JAX trainer also logs skeleton images to tensorboard;
-        that waits for utils/vis.py (ROADMAP.md §1 item 14)."""
+        test(). With a tensorboard writer, each batch's first sample is
+        logged as skeleton overlays, as the JAX trainer logs them."""
         data = eval_data if eval_data is not None else self.test_data
         joint_list = []
         n_real = []
         for nb, batch in enumerate(self._padded_batches(data, n_real)):
             results, _ = self.eval_step(self.state, batch)
+            if self.logger.tb is not None:
+                self._log_eval_images(batch, results[-1], nb)
             world = (results[-1].float() * batch['cube'][:, None] / 2
                      + batch['center'][:, None])
             world = world.cpu().numpy()[:n_real[nb], MANO2HO3D, :]

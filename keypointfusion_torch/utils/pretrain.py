@@ -1,17 +1,22 @@
 """ImageNet warm start of the backbones (port of
 keypointfusion_tpu/utils/pretrain.py).
 
-The reference builds its backbones from torchvision's ImageNet ResNet
-weights, loaded with strict=False, and then gives the depth backbone a
-fresh one-channel stem (reference model/resnetUnet.py:278-289). It
-downloads them; here the checkpoint must already be on disk, at
+The reference builds its backbones from ImageNet weights and downloads
+them; here the checkpoint must already be on disk, at
 `Config.pretrain_dir` (a file or a directory) or in the torch hub cache
-(~/.cache/torch/hub/checkpoints). The port's ResNet carries torchvision's
-names under `backbone_d.backbone.` and `backbone_rgb.backbone.`, so the
-checkpoint needs no conversion, and utils/weights.py:merge_partial's
-shape gate keeps the reference's stem rule: the RGB `conv1` [64,3,7,7]
-merges, the depth `conv1` [64,1,7,7] keeps its fresh weights. ConvNeXt is
-not ported (ROADMAP.md §1 item 15).
+(~/.cache/torch/hub/checkpoints). The port's encoders carry the release
+checkpoints' names under `backbone_d.backbone.` and
+`backbone_rgb.backbone.`, so no conversion is needed:
+  * ResNet-18/50/101/152, torchvision's weights, loaded with strict=False
+    and then the depth backbone given a fresh one-channel stem (reference
+    model/resnetUnet.py:278-289): utils/weights.py:merge_partial's shape
+    gate keeps that rule, the RGB `conv1` [64,3,7,7] merges and the depth
+    `conv1` [64,1,7,7] keeps its fresh weights.
+  * ConvNeXt T/S/B/L, the release checkpoint `{'model': sd}`: both
+    backbones replace the stem (`downsample_layers.0`) with a fresh one
+    (convNeXT/resnetUnet.py:105-109) and use no classifier, so the stem
+    and the classifier's `norm` and `head` are dropped, as the JAX
+    package's convert_convnext_imagenet drops them.
 """
 
 from __future__ import annotations
@@ -67,17 +72,18 @@ def find_imagenet_checkpoint(cfg: Config) -> Optional[str]:
 
 
 def imagenet_backbone_state_dict(cfg: Config) -> Optional[StateDict]:
-    """The ImageNet checkpoint's ResNet tensors under both backbones'
+    """The ImageNet checkpoint's encoder tensors under both backbones'
     encoder names, for merge_partial over a fresh KPFusion; None when no
     checkpoint is found (and none was configured)."""
-    if 'convnext' in cfg.net:
-        raise NotImplementedError(
-            'the ConvNeXt backbone is not ported (ROADMAP.md §1 item 15)')
     path = find_imagenet_checkpoint(cfg)
     if path is None:
         return None
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
     sd = strip_module_prefix(ckpt.get('state_dict', ckpt.get('model', ckpt)))
+    if 'convnext' in cfg.net:
+        sd = {k: v for k, v in sd.items()
+              if k.startswith(('downsample_layers.', 'stages.'))
+              and not k.startswith('downsample_layers.0.')}
     return {f'{backbone}.backbone.{k}': v
             for backbone in ('backbone_d', 'backbone_rgb')
             for k, v in sd.items()}

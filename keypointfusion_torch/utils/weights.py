@@ -14,10 +14,10 @@ reads, and this function is that converter's exact inverse:
     [H,C/H,C] -> [C,C];
   * flax's `pcl_feat_emb_rgb` -> the reference's `pcl_feat_emb_RGB`.
 Because the names are the ones convert_kpfusion_checkpoint reads, a
-released reference state_dict holds every key of the port; load it with
-`strict=False`, since the reference also builds modules its forward never
-uses (the cross decoder's norm1, the skip convs of equal-width Residuals).
-No released checkpoint is in the repository, so that load is untested.
+released reference state_dict holds every key of the port;
+`load_kpfusion_weights` loads it, dropping the modules the reference
+builds but never runs. No released checkpoint is in the repository, so
+that load is tested on fabricated ones.
 
 Warm starts (the trainer's `load_model`, `finetune_dir` and `pretrain`):
 `load_torch_checkpoint` reads a `.pth` (`{'model': state_dict}` or a bare
@@ -34,17 +34,20 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from keypointfusion_torch.models.convnext import MODEL_LIST, resolve_size
+from keypointfusion_torch.models.resnet import STAGES
+
 StateDict = Dict[str, torch.Tensor]
 
-RESNET_SIZES = {18: (2, 2, 2, 2)}
-# (JAX name, reference name, in width, out width) of the UNet Residuals
+# (JAX name, reference name) of the UNet decoders' Residuals; a Residual
+# whose widths differ carries its `skip` conv in both trees
 UNET_RESIDUALS = (
-    ('up4', 'up4.0', 512, 512), ('skip_layer4', 'skip_layer4', 256, 256),
-    ('fusion_layer4', 'fusion_layer4', 768, 256), ('up3', 'up3.0', 256, 256),
-    ('skip_layer3', 'skip_layer3', 128, 128),
-    ('fusion_layer3', 'fusion_layer3', 384, 128), ('up2', 'up2.0', 128, 128),
-    ('skip_layer2', 'skip_layer2', 64, 64),
-    ('fusion_layer2', 'fusion_layer2', 192, 128))
+    ('up4', 'up4.0'), ('skip_layer4', 'skip_layer4'),
+    ('fusion_layer4', 'fusion_layer4'), ('up3', 'up3.0'),
+    ('skip_layer3', 'skip_layer3'), ('fusion_layer3', 'fusion_layer3'),
+    ('up2', 'up2.0'), ('skip_layer2', 'skip_layer2'),
+    ('fusion_layer2', 'fusion_layer2'))
+CONVNEXT_RESIDUALS = UNET_RESIDUALS + (('result_emb', 'result_emb'),)
 EMBEDDINGS = (('pcl_feat_emb', 'pcl_feat_emb'),
               ('pcl_xyz_emb', 'pcl_xyz_emb'),
               ('pcl_pose_emb', 'pcl_pose_emb'),
@@ -89,10 +92,12 @@ def _layernorm(sd: StateDict, name: str, p: dict) -> None:
 def _resnet(sd: StateDict, pre: str, p: dict, s: dict, depth: int) -> None:
     _conv2d(sd, f'{pre}conv1', p['conv1'])
     _bn(sd, f'{pre}bn1', p['bn1'], s['bn1'])
-    for stage, nblocks in enumerate(RESNET_SIZES[depth]):
+    kind, sizes = STAGES[depth]
+    convs = (1, 2) if kind == 'basic' else (1, 2, 3)
+    for stage, nblocks in enumerate(sizes):
         for i in range(nblocks):
             jn, tn = f'layer{stage + 1}_{i}', f'{pre}layer{stage + 1}.{i}'
-            for c in (1, 2):
+            for c in convs:
                 _conv2d(sd, f'{tn}.conv{c}', p[jn][f'conv{c}'])
                 _bn(sd, f'{tn}.bn{c}', p[jn][f'bn{c}'], s[jn][f'bn{c}'])
             if 'downsample_conv' in p[jn]:
@@ -109,13 +114,41 @@ def _residual(sd: StateDict, pre: str, p: dict, s: dict) -> None:
         _conv2d(sd, f'{pre}.skip_layer.conv', p['skip'])
 
 
-def _resnet_unet(sd: StateDict, pre: str, p: dict, s: dict,
-                 depth: int) -> None:
-    _resnet(sd, f'{pre}backbone.', p['backbone'], s['backbone'], depth)
-    for jn, tn, _, _ in UNET_RESIDUALS:
+def _decoder(sd: StateDict, pre: str, p: dict, s: dict, residuals) -> None:
+    for jn, tn in residuals:
         _residual(sd, f'{pre}{tn}', p[jn], s[jn])
     for i in range(3):
         _conv2d(sd, f'{pre}finals.{i}', p[f'final_{i}'])
+
+
+def _resnet_unet(sd: StateDict, pre: str, p: dict, s: dict,
+                 depth: int) -> None:
+    _resnet(sd, f'{pre}backbone.', p['backbone'], s['backbone'], depth)
+    _decoder(sd, pre, p, s, UNET_RESIDUALS)
+
+
+def _convnext(sd: StateDict, pre: str, p: dict, depths) -> None:
+    """ConvNeXt encoder params (LayerNorm only, no statistics)."""
+    _conv2d(sd, f'{pre}downsample_layers.0.0', p['stem_conv'])
+    _layernorm(sd, f'{pre}downsample_layers.0.1', p['stem_norm'])
+    for i in range(1, 4):
+        _layernorm(sd, f'{pre}downsample_layers.{i}.0', p[f'down_norm{i}'])
+        _conv2d(sd, f'{pre}downsample_layers.{i}.1', p[f'down_conv{i}'])
+    for i, nblocks in enumerate(depths):
+        for j in range(nblocks):
+            bp, tn = p[f'stage{i}_block{j}'], f'{pre}stages.{i}.{j}'
+            _conv2d(sd, f'{tn}.dwconv', bp['dwconv'])
+            _layernorm(sd, f'{tn}.norm', bp['norm'])
+            _dense(sd, f'{tn}.pwconv1', bp['pwconv1'])
+            _dense(sd, f'{tn}.pwconv2', bp['pwconv2'])
+            sd[f'{tn}.gamma'] = _t(bp['gamma'])
+
+
+def _convnext_unet(sd: StateDict, pre: str, p: dict, s: dict,
+                   size: str) -> None:
+    depths, _ = MODEL_LIST[resolve_size(size)]
+    _convnext(sd, f'{pre}backbone.', p['backbone'], depths)
+    _decoder(sd, pre, p, s, CONVNEXT_RESIDUALS)
 
 
 def _head_kernel(k) -> np.ndarray:
@@ -224,12 +257,16 @@ def jax_kpfusion_to_state_dict(variables: dict,
                                net: str = 'KPFusion-resnet-18'
                                ) -> StateDict:
     """JAX KPFusion variables {'params', 'batch_stats'} (numpy leaves) ->
-    the port's KPFusion state_dict (float32 CPU tensors)."""
-    depth = int(net.split('-')[-1])
+    the port's KPFusion state_dict (float32 CPU tensors), for either
+    backbone family (`net` as Config.net)."""
+    size = net.split('-')[-1]
     p, s = variables['params'], variables['batch_stats']
     sd: StateDict = {}
     for name in ('backbone_d', 'backbone_rgb'):
-        _resnet_unet(sd, f'{name}.', p[name], s[name], depth)
+        if 'convnext' in net:
+            _convnext_unet(sd, f'{name}.', p[name], s[name], size)
+        else:
+            _resnet_unet(sd, f'{name}.', p[name], s[name], int(size))
     i = 1
     while f'block{i}' in p:
         _fusion_block(sd, f'block{i}', p[f'block{i}'], s[f'block{i}'])
@@ -269,3 +306,16 @@ def load_torch_checkpoint(path: str) -> StateDict:
     checkpoint needs no conversion."""
     ckpt = torch.load(path, map_location='cpu', weights_only=True)
     return strip_module_prefix(ckpt.get('model', ckpt))
+
+
+def load_kpfusion_weights(model: torch.nn.Module, sd: StateDict) -> None:
+    """Every tensor of `model` from `sd` (a released reference state_dict
+    or a port checkpoint's): raises if one is missing or of another shape,
+    as the JAX package's converter does. Other keys are the reference's
+    modules that its forward never runs, and are dropped: the ConvNeXt
+    decoder's `feat_emb`, the skip convs of equal-width Residuals, the
+    cross decoder's norm1."""
+    missing = model.load_state_dict(sd, strict=False).missing_keys
+    if missing:
+        raise KeyError(f'{len(missing)} weights missing from the '
+                       f'checkpoint: {missing[:8]}')

@@ -649,3 +649,29 @@ def test_data_path_on_card_machine(cuda_device, tmp_path):
     assert np.isfinite(trainer.train())
     assert trainer.state.step == 2
     assert (k2.KERNEL.launches, k1.KERNEL.launches) == (2, 4)
+
+
+@pytest.mark.cuda
+def test_demo_kernels_match_plain_on_card(cuda_device):
+    """ModelRGBD on the card at batch 1 (the fixture's test frame 0):
+    K2 'highest' once and K1 'highest' twice a frame, and the joints
+    within chip_smoke.py's DEMO_TOL (normalized units) of the plain path
+    on the same point draws."""
+    from chip_smoke import DEMO_TOL, demo_frame, demo_normalized
+    from keypointfusion_torch import demo
+
+    inp, cam = demo_frame(0)
+    model = demo.ModelRGBD(Config(phase='test'), cam, device=cuda_device)
+    answers = []
+    for use_kernels in (True, False):
+        model.np_rng = np.random.RandomState(model.cfg.seed)
+        model.model.use_kernels = use_kernels
+        launches = (k2.KERNEL.launches, k1.KERNEL.launches)
+        meta, out = model.estimate_pose_rgbd([inp])
+        if use_kernels:
+            assert (k2.KERNEL.launches - launches[0],
+                    k1.KERNEL.launches - launches[1]) == (1, 2)
+        answers.append(demo_normalized(model, meta[0], out[0]))
+    for g, w in zip(*answers):
+        assert np.isfinite(g).all()
+        assert np.abs(g - w).max() <= DEMO_TOL

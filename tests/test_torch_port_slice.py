@@ -40,6 +40,7 @@ from keypointfusion_tpu.utils.torch_convert import \
 import keypointfusion_torch
 from keypointfusion_torch.config import Config
 from keypointfusion_torch.data.synthetic import synthetic_frames
+from keypointfusion_torch.demo import ModelRGBD
 from keypointfusion_torch.geometry.camera import CropFrame
 from keypointfusion_torch.models.kpfusion import KPFusion, build_kpfusion
 from keypointfusion_torch.serving import StreamingEngine
@@ -194,6 +195,8 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         build_kpfusion(Config())
     with pytest.raises(RuntimeError, match='no CUDA device'):
         StreamingEngine(Config(point_num=128), batch_size=2)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ModelRGBD(Config(), (600.0, 600.0, 320.0, 240.0))
     model = build_kpfusion(Config(), device='cpu')
     assert not model.training
     with pytest.raises(ValueError, match='Generator'):
@@ -232,7 +235,11 @@ def test_port_imports_no_jax():
             'keypointfusion_torch.data.cv_ops',
             'keypointfusion_torch.data.preprocessing',
             'keypointfusion_torch.data.datasets',
-            'keypointfusion_torch.train'} <= set(names)
+            'keypointfusion_torch.train',
+            'keypointfusion_torch.demo',
+            'keypointfusion_torch.utils.vis',
+            'keypointfusion_torch.utils.raster',
+            'keypointfusion_torch.models.convnext'} <= set(names)
     code = ('import sys\n'
             f'for name in {names!r}:\n'
             '    __import__(name)\n'

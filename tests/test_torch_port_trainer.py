@@ -120,10 +120,24 @@ def record(module, name, calls, monkeypatch):
     monkeypatch.setattr(module, name, wrapped)
 
 
+class ImageRecorder:
+    """A tensorboard writer that keeps what add_image is given."""
+
+    def __init__(self):
+        self.images = []
+
+    def add_image(self, tag, img, global_step=None):
+        self.images.append((tag, global_step, np.asarray(img)))
+
+    def add_scalar(self, tag, value, global_step=None):
+        pass
+
+
 def run_test_and_evaluation(trainer, jax_side):
     """test() and evaluation() of one trainer: the printed text, each
     stage's per-sample errors and PA errors [stage][sample, joint], the
-    dump files and pred.json."""
+    dump files, pred.json and the images evaluation() logs to a
+    tensorboard writer."""
     calls = {'err': [], 'pa': []}
     out = io.StringIO()
     module = jtrainer if jax_side else ptrainer
@@ -147,9 +161,10 @@ def run_test_and_evaluation(trainer, jax_side):
     files = {name: open(os.path.join(trainer.model_dir, name)).read()
              for name in [f'test_{i}.txt' for i in range(n_stage)]
              + ['id.txt']}
+    trainer.logger.tb = ImageRecorder()
     with cpu_reference_convs():
         pred = json.load(open(trainer.evaluation()))
-    return out.getvalue(), per_stage, files, pred
+    return out.getvalue(), per_stage, files, pred, trainer.logger.tb.images
 
 
 @pytest.fixture(scope='module')
@@ -188,8 +203,8 @@ def printed(text, label):
 def test_test_matches_jax(jax_run, port_run):
     """Per-stage errors and PA errors of every sample and joint, the
     printed means and AUCs, the dumps and id.txt (module docstring)."""
-    j_text, j_stage, j_files, _ = jax_run
-    p_text, p_stage, p_files, _ = port_run
+    j_text, j_stage, j_files, _, _ = jax_run
+    p_text, p_stage, p_files, _, _ = port_run
     measured = {}
     for key in ('err', 'pa'):
         assert p_stage[key].shape == j_stage[key].shape == (6, 6, 21)
@@ -228,6 +243,20 @@ def test_evaluation_matches_jax(jax_run, port_run):
     err = float(np.abs(gj - wj).max())
     assert err <= MM_TOL / 1000, err
     print('measured (m):', err)
+
+
+def test_evaluation_logs_eval_images_as_jax(jax_run, port_run):
+    """With a tensorboard writer, evaluation() logs 'eval_img' (BGR) and
+    'eval_img_rgb' (RGB), CHW in [0, 1], the first sample of each batch
+    with its last-stage skeleton, as the JAX trainer does: equal to
+    JAX's bit for bit."""
+    want, got = jax_run[4], port_run[4]
+    assert [(t, s) for t, s, _ in got] == [(t, s) for t, s, _ in want] == [
+        ('eval_img', 0), ('eval_img_rgb', 0), ('eval_img', 1),
+        ('eval_img_rgb', 1)]
+    for (_, _, g), (_, _, w) in zip(got, want):
+        assert g.shape == w.shape == (3, 128, 128)
+        assert np.array_equal(g, w)
 
 
 # ------------------------------------------------------------ the loop --

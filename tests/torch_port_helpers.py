@@ -203,3 +203,128 @@ def jax_float64():
     finally:
         for m in patched:
             m.jnp = jnp
+
+
+@torch.no_grad()
+def set_layer_scales(module: torch.nn.Module, seed: int) -> None:
+    """ConvNeXt's layer scales (gamma, 1e-6 at init, which leaves every
+    block an identity) drawn from U(0.5, 1.5)."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in module.named_parameters():
+        if name.endswith('gamma'):
+            p.copy_(torch.rand(p.shape, generator=g) + 0.5)
+
+
+def backbone_net_weights(net: str, batch, seed: int = 0):
+    """(port state_dict, JAX variables) of KPFusion `net` holding the same
+    weights: the port's model from `seed`, its layer scales set, its
+    backbones' BatchNorm statistics set to those of `batch`'s images, and
+    carried to JAX by the JAX package's converter."""
+    from keypointfusion_tpu.utils.torch_convert import \
+        convert_kpfusion_checkpoint
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.models.kpfusion import build_kpfusion
+    model = build_kpfusion(Config(net=net), device='cpu', seed=seed)
+    set_layer_scales(model, seed + 1)
+    with cpu_reference_convs():
+        calibrate_batch_norms(model.backbone_d,
+                              torch.from_numpy(batch['depth']))
+        calibrate_batch_norms(model.backbone_rgb,
+                              torch.from_numpy(batch['rgb']))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    return sd, jax.tree_util.tree_map(
+        np.asarray, convert_kpfusion_checkpoint(sd, net=net))
+
+
+def kpfusion_outputs(net: str, variables, batch, dtype=jnp.float32):
+    """JAX KPFusion `net`'s eval forward op by op (the plain path), its
+    six results and two spatial weights as float64 numpy."""
+    from keypointfusion_tpu.config import Config
+    from keypointfusion_tpu.models.kpfusion import KPFusion
+    from keypointfusion_tpu.training.train_step import frame_from_batch
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    res, sw = KPFusion(net=net, joint_num=21, dtype=dtype).apply(
+        variables, jb['rgb'], jb['depth'], jb['pcl'],
+        frame_from_batch(jb, Config()))
+    return [np.asarray(t, np.float64) for t in res + sw]
+
+
+def port_kpfusion_outputs(net: str, sd, batch, dtype=torch.float32):
+    """The port's KPFusion `net` with `sd`, eval forward on the CPU (the
+    kernels' plain versions, convolutions without oneDNN): its eight
+    outputs as float64 numpy, and their dtypes."""
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.geometry.camera import CropFrame
+    from keypointfusion_torch.models.kpfusion import build_kpfusion
+    model = build_kpfusion(Config(net=net), device='cpu', dtype=dtype)
+    model.load_state_dict(sd, strict=True)
+    frame = CropFrame.from_batch(batch['cam_para'], batch['center'],
+                                 batch['M'], batch['cube'])
+    t = lambda k: torch.from_numpy(batch[k])
+    with torch.no_grad(), cpu_reference_convs():
+        res, sw = model(t('rgb'), t('depth'), t('pcl'), frame)
+    out = res + sw
+    return [x.double().numpy() for x in out], [x.dtype for x in out]
+
+
+KPFUSION_OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d',
+                    'b2_3d', 'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
+
+
+def _err(a, b):
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def _scale(a):
+    return max(1.0, float(np.abs(a).max()))
+
+
+def check_kpfusion_float32(net, sd, variables, batch, want):
+    """The port's float32 eval forward of `net` against JAX's op-by-op
+    outputs `want`: each output within 1e-4 of its scale (at least 1),
+    or, where JAX's own float32 run lies further than that from its
+    float64 run (one jit of the whole model in float64, whose reordered
+    sums move nothing at that limit), within twice that distance.
+    Returns {output: (error / scale, JAX's own distance or None)}."""
+    from keypointfusion_tpu.config import Config
+    from keypointfusion_tpu.models.kpfusion import KPFusion
+    from keypointfusion_tpu.training.train_step import frame_from_batch
+    got, dtypes = port_kpfusion_outputs(net, sd, batch)
+    assert dtypes == [torch.float32] * 8
+    measured = {n: (_err(g, w) / _scale(w), None)
+                for n, g, w in zip(KPFUSION_OUTPUTS, got, want)}
+    over = [i for i, n in enumerate(KPFUSION_OUTPUTS)
+            if measured[n][0] > 1e-4]
+    if over:
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        with jax_float64():
+            v64 = jax.tree_util.tree_map(
+                lambda a: np.asarray(a, np.float64), variables)
+            model = KPFusion(net=net, joint_num=21, dtype=jnp.float64)
+            res, sw = jax.jit(model.apply)(
+                v64, jb['rgb'], jb['depth'], jb['pcl'],
+                frame_from_batch(jb, Config()))
+            want64 = [np.asarray(t, np.float64) for t in res + sw]
+        for i in over:
+            name = KPFUSION_OUTPUTS[i]
+            jax_own = _err(want[i], want64[i])
+            measured[name] = (measured[name][0], jax_own)
+            assert _err(got[i], want[i]) <= 2 * jax_own, (name, measured)
+    return measured
+
+
+def check_kpfusion_bfloat16(net, sd, variables, batch, want):
+    """The port's bfloat16 eval forward of `net` against JAX's float32
+    outputs `want`, within the bfloat16 slice's budget: per output,
+    max|port_bf16 - jax_f32| <= 2 max|jax_bf16 - jax_f32| + 2^-8 of its
+    scale, JAX's bfloat16 forward running op by op. Returns {output:
+    (port gap, JAX gap)}."""
+    want_bf = kpfusion_outputs(net, variables, batch, jnp.bfloat16)
+    got, dtypes = port_kpfusion_outputs(net, sd, batch, torch.bfloat16)
+    assert dtypes == [torch.bfloat16] * 8
+    gaps = {}
+    for name, g, w, wbf in zip(KPFUSION_OUTPUTS, got, want, want_bf):
+        gaps[name] = (_err(g, w), _err(wbf, w))
+        assert gaps[name][0] <= 2 * gaps[name][1] + 2 ** -8 * _scale(w), \
+            (name, gaps)
+    return gaps
