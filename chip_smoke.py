@@ -23,7 +23,14 @@ the command line (check_data); the demo (check_demo: ModelRGBD at batch
 1 on a fixture frame and the JAX demo's synthetic frame, and demo.main());
 and the config's other backbones (check_backbones: KPFusion-convnext-T
 and KPFusion-resnet-50 through the forward, both engines and, for
-ConvNeXt-T, the train step). Weights are random, drawn from a seed.
+ConvNeXt-T, the train step); the config's other feature types
+(check_feature_types: 'offset' and 'heatmap' trained, card against CPU
+and timed, and with 'weight_offset_nosoftmax' each decoding an eval batch
+through the trainer's decode, the kernels against the plain path); MANO
+(check_mano: mano_forward and ManoRegHead at batch 64, card against
+CPU, ms and host waits a call); and DESA's dense train form
+(check_desa_dense_train: against the gather form on the card, then ms a
+step and peak memory). Weights are random, drawn from a seed.
 Every phase prints one line; then a JSON line describing each kernel, the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
@@ -48,6 +55,7 @@ one TF32 pass fails K1 'highest''s and K3's limits.
 """
 
 import collections
+import dataclasses
 import json
 import subprocess
 import sys
@@ -175,6 +183,22 @@ DEMO_FRAMES = 20
 BACKBONE_NETS = ('KPFusion-convnext-T', 'KPFusion-resnet-50')
 BACKBONE_TRAIN_NET = 'KPFusion-convnext-T'
 BACKBONE_TRAIN_BATCH = 8
+# the [feature_types] phase: the config's other decodable feature types;
+# the first two train (card against CPU at FEATURE_TRAIN_BATCH, then timed
+# at BATCH), all three decode one eval batch through Trainer._decode_stage
+FEATURE_TYPES = (('offset',), ('heatmap',), ('weight_offset_nosoftmax',))
+FEATURE_TRAINED = 2
+FEATURE_TRAIN_BATCH = 8
+# the [mano] phase: the synthetic 778-vertex asset at batch 64; the card
+# against the CPU port within these fractions of each tensor's scale (at
+# least 1): the meshes and joints in mm, the head's gradients
+MANO_TOL = {'mesh': 1e-5, 'grad': 1e-4}
+MANO_ITERS = 20
+# the [desa_dense_train] phase: dense against gather on the card at batch
+# 8 within TRAIN_TOL['float32']; timed at the first of these batches that
+# fits on the card
+DENSE_TRAIN_BATCH = 8
+DENSE_TIMED_BATCHES = (BATCH, 48, 32, 16)
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
            'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
 
@@ -1112,50 +1136,52 @@ def step_grads(model):
             .detach().cpu().double() for k, p in model.named_parameters()}
 
 
-def card_vs_cpu_step(dev, compute_dtype, net, batch_size):
+def compare_steps(sides, compute_dtype, net, batch_size, **cfg_kw):
     """One SGD-momentum step of KPFusion `net` at `batch_size` with 256
-    points, dropout 0, on the card and on the CPU (the port's own step;
-    this machine has no JAX) from the same weights: the loss, every
-    parameter, every running statistic, the update over all parameters
-    and the statistics' change within TRAIN_TOL[compute_dtype], and the
-    controls (TRAIN_CONTROLS) outside it. Returns the phase line's
-    'card_vs_cpu' dict."""
+    points, dropout 0, on each of two sides (device, DESA's dense_train)
+    from the same weights: the second side's loss, every parameter, every
+    running statistic, the update over all parameters and the statistics'
+    change within TRAIN_TOL[compute_dtype] of the first side's, and the
+    controls (TRAIN_CONTROLS) outside it. cfg_kw: more Config fields.
+    Returns the phase line's dict."""
     import torch
     from keypointfusion_torch.config import Config
     from keypointfusion_torch.data.synthetic import synthetic_batch
+    from keypointfusion_torch.models.desa import set_dense_train
     from keypointfusion_torch.training.train_step import (
         batch_to_device, create_train_state, make_train_step,
     )
 
     tol = TRAIN_TOL[compute_dtype]
     cfg = Config(net=net, compute_dtype=compute_dtype, opt='sgd',
-                 lr=TRAIN_LR)
+                 lr=TRAIN_LR, **cfg_kw)
     small = synthetic_batch(batch_size=batch_size, point_num=256, seed=42)
     stepped = []
-    for where in ('cpu', dev):
+    for where, dense in sides:
         b = batch_to_device(small, where)
         state = create_train_state(cfg, b, device=where, seed=0,
                                    dropout=0.0)
+        set_dense_train(state.model, dense)
         start = state64(state.model)
         with torch.backends.mkldnn.flags(enabled=False):
             state, metrics = make_train_step(cfg)(state, b, None, 0)
         stepped.append((state.model, float(metrics['loss']), start))
-    (cpu_model, cpu_loss, start), (card_model, card_loss, card_start) = \
+    (ref_model, ref_loss, start), (got_model, got_loss, got_start) = \
         stepped
-    if any(not torch.equal(card_start[k], t) for k, t in start.items()):
-        raise AssertionError(f'train {net} {compute_dtype}: the card and '
-                             f'the CPU start from different weights')
-    loss_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    what = f'train {net} {compute_dtype} {cfg_kw}: {sides[1]} against ' \
+        f'{sides[0]}'
+    if any(not torch.equal(got_start[k], t) for k, t in start.items()):
+        raise AssertionError(f'{what}: the two start from different weights')
+    loss_err = abs(got_loss - ref_loss) / abs(ref_loss)
     failures, errors, controls = train_step_failures(
-        state64(card_model), state64(cpu_model), start,
-        step_grads(card_model), TRAIN_LR, tol)
+        state64(got_model), state64(ref_model), start,
+        step_grads(got_model), TRAIN_LR, tol)
     if not loss_err <= tol['loss_rel']:
         failures.append('loss')
     if failures:
         raise AssertionError(
-            f'train {net} {compute_dtype}: the card step differs from the '
-            f'CPU step: {failures}; loss {loss_err}, {errors}, controls '
-            f'{controls}; tolerance {tol}')
+            f'{what}: the steps differ: {failures}; loss {loss_err}, '
+            f'{errors}, controls {controls}; tolerance {tol}')
     return {'batch': batch_size, 'lr': TRAIN_LR, 'loss_rel': loss_err,
             'worst_param_over_tol': errors['param'][0],
             'param': errors['param'][1],
@@ -1167,9 +1193,19 @@ def card_vs_cpu_step(dev, compute_dtype, net, batch_size):
             'tol': tol}
 
 
-def timed_train_steps(dev, kernels, compute_dtype, net):
-    """KPFusion `net`'s train step at batch 64, 1024 points, full width,
-    AdamW, dropout 0.1 from a CUDA generator: TRAIN_WARMUP steps, then
+def card_vs_cpu_step(dev, compute_dtype, net, batch_size, **cfg_kw):
+    """compare_steps of the card's step against the CPU's (the port's own
+    step; this machine has no JAX). Returns the phase line's
+    'card_vs_cpu' dict."""
+    return compare_steps([('cpu', False), (dev, False)], compute_dtype, net,
+                         batch_size, **cfg_kw)
+
+
+def timed_train_steps(dev, kernels, compute_dtype, net, batch_size=BATCH,
+                      dense_train=False, **cfg_kw):
+    """KPFusion `net`'s train step at `batch_size`, 1024 points, full
+    width, AdamW, dropout 0.1 from a CUDA generator, DESA's dense_train
+    as given, cfg_kw more Config fields: TRAIN_WARMUP steps, then
     TRAIN_STEPS timed by CUDA events; peak memory; every loss finite. The
     launch counters, set to 0 before the steps, read 0 after them (the
     kernels are eval-only). Returns (state, batch, cfg, the phase line's
@@ -1181,10 +1217,13 @@ def timed_train_steps(dev, kernels, compute_dtype, net):
         batch_to_device, create_train_state, make_train_step,
     )
 
-    cfg = Config(net=net, compute_dtype=compute_dtype)
+    from keypointfusion_torch.models.desa import set_dense_train
+
+    cfg = Config(net=net, compute_dtype=compute_dtype, **cfg_kw)
     batch = batch_to_device(
-        synthetic_batch(batch_size=BATCH, point_num=1024, seed=2), dev)
+        synthetic_batch(batch_size=batch_size, point_num=1024, seed=2), dev)
     state = create_train_state(cfg, batch, device=dev, seed=0)
+    set_dense_train(state.model, dense_train)
     step = make_train_step(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2165,6 +2204,261 @@ def check_backbones(dev, kernels, card, batch):
         seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
 
 
+def decode_stages(model, batch, cfg, use_kernels):
+    """One eval step of `model` on `batch`, every stage decoded as the
+    trainer decodes it (Trainer._decode_stage, by cfg's feature type and
+    stage_type): [stages, B, J, 3] in mm from the crop centre."""
+    import torch
+    from keypointfusion_torch.training.train_step import (
+        TrainState, frame_from_batch, make_eval_step,
+    )
+    from keypointfusion_torch.training.trainer import Trainer
+
+    model.use_kernels = use_kernels
+    results, _ = make_eval_step(cfg)(TrainState(model, None, None), batch)
+    model.use_kernels = True
+    frame = frame_from_batch(batch, cfg)
+    holder = types.SimpleNamespace(cfg=cfg)
+    xyz = torch.stack([Trainer._decode_stage(holder, results, batch, frame,
+                                             i, stage)
+                       for i, stage in enumerate(cfg.stage_type)])
+    return xyz * (batch['cube'][None, :, None, :] / 2.0)
+
+
+def check_feature_types(dev, kernels, card):
+    """The config's other feature types (FEATURE_TYPES), KPFusion-resnet-18
+    in float32, TF32 off:
+    1. 'offset' and 'heatmap' train: card_vs_cpu_step at
+       FEATURE_TRAIN_BATCH within TRAIN_TOL['float32'], then
+       timed_train_steps at batch 64 (ms a step, no launch), beside the
+       default 'weight_offset' step timed in the same call.
+    2. A main path: each of the three decodes one eval batch of 64 through
+       Trainer._decode_stage, the launch counters set to 0 just before and
+       read just after: K2 'highest' once and K1 'highest' twice; then the
+       plain path, block 2 taking the same inputs (Block2Inputs): every
+       stage within TRAINER_MM_TOL (mm), the non-finite joints of the
+       nosoftmax decode (its weights' sum may be <= 0 on random weights,
+       as in JAX) at the same places on both paths.
+    One line, a JSON object by feature type."""
+    import torch
+    from keypointfusion_torch.models.kpfusion import build_kpfusion
+
+    t0 = time.perf_counter()
+    net = 'KPFusion-resnet-18'
+    state, _, _, timed = timed_train_steps(dev, kernels, 'float32', net)
+    del state
+    entries = {'weight_offset': {'ms_per_step': timed['ms_per_step']}}
+    want_launches = dict.fromkeys(kernels, 0)
+    want_launches.update({'pixel_sampler': 1, 'desa_dense': 2})
+    for i, ftype in enumerate(FEATURE_TYPES):
+        kw = {'feature_type': ftype}
+        entry = {}
+        if i < FEATURE_TRAINED:
+            entry['card_vs_cpu'] = card_vs_cpu_step(
+                dev, 'float32', net, FEATURE_TRAIN_BATCH, **kw)
+            state, batch, cfg, timed = timed_train_steps(
+                dev, kernels, 'float32', net, **kw)
+            model = state.model
+            entry.update({k: timed[k] for k in ('ms_per_step', 'peak_gib',
+                                                'step_launches')})
+        else:
+            cfg = dataclasses.replace(cfg, **kw)
+            model = build_kpfusion(cfg, device=dev, seed=0)
+        block2 = Block2Inputs(model)
+        reset(kernels)
+        got = decode_stages(model, batch, cfg, True)
+        launches = counts(kernels)
+        if launches != want_launches:
+            raise AssertionError(f'{ftype} decode launched {launches}, '
+                                 f'expected {want_launches}')
+        block2.replay()
+        want = decode_stages(model, batch, cfg, False)
+        block2.remove()
+        same = (got == want) | (got.isnan() & want.isnan())
+        err = float(torch.where(same, torch.zeros_like(got),
+                                (got - want).abs()).max())
+        finite = torch.isfinite(got)
+        if not err <= TRAINER_MM_TOL or (i < FEATURE_TRAINED
+                                         and not bool(finite.all())):
+            raise AssertionError(f'{ftype} decode: kernels against plain '
+                                 f'{err} mm (tol {TRAINER_MM_TOL}), '
+                                 f'finite {bool(finite.all())}')
+        entry.update({'eval_launches': launches, 'eval_max_abs_err_mm': err,
+                      'non_finite_joints': int((~finite).any(-1).sum())})
+        entries[ftype[0]] = entry
+        del model, state
+        state = None
+        torch.cuda.empty_cache()
+    log('feature_types', batch=BATCH, tol_mm=TRAINER_MM_TOL,
+        types=json.dumps(entries),
+        seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
+
+def count_waits(fn):
+    """fn()'s result and the host's waits for the card inside it
+    (torch.cuda.set_sync_debug_mode), by source line."""
+    import torch
+    sites = collections.Counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        original = warnings.showwarning
+
+        def show(message, category, filename, lineno, *args, **kw):
+            if 'synchroniz' in str(message):
+                sites[f'{filename}:{lineno}'] += 1
+            else:
+                original(message, category, filename, lineno, *args, **kw)
+        # the mode's own notice, when it is first set, is no wait
+        torch.cuda.set_sync_debug_mode('warn')
+        warnings.showwarning = show
+        try:
+            return fn(), sites
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+            warnings.showwarning = original
+
+
+def check_mano(dev, card):
+    """MANO at batch 64 on the synthetic asset (778 vertices; no MANO pkl
+    is in the repository), float32, TF32 off:
+    1. mano_forward in PCA mode with betas and trans, and in the
+       rotation-matrix mode; ManoRegHead (feature_size 1024, neurons
+       (1024, 512)) forward and backward of a fixed scalar of its mesh,
+       joints and axis-angle pose. The card against the CPU port on the
+       same inputs and weights: meshes and joints within MANO_TOL['mesh']
+       and every head gradient within MANO_TOL['grad'] of its scale.
+    2. ms a call of each (CUDA events over MANO_ITERS calls after a
+       warm-up) and the host's waits for the card in one call (the target
+       is 0)."""
+    import torch
+    from keypointfusion_torch.mano.assets import synthetic_mano_model
+    from keypointfusion_torch.mano.mano_head import ManoRegHead
+    from keypointfusion_torch.mano.manolayer import (
+        ManoLayer, batch_rodrigues, mano_forward,
+    )
+
+    t0 = time.perf_counter()
+    asset = synthetic_mano_model()
+    rng = np.random.RandomState(0)
+    arrays = {'pose': rng.randn(BATCH, 48) * 0.5,
+              'betas': rng.randn(BATCH, 10),
+              'trans': rng.randn(BATCH, 3) * 0.1,
+              'aa': rng.randn(BATCH, 16, 3) * 0.7,
+              'feat': rng.randn(BATCH, 1024),
+              'cot': rng.randn(BATCH, 778 + 21 + 16, 3)}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        head_cpu = ManoRegHead(asset, 1024, (1024, 512), device='cpu')
+
+    def calls(where):
+        x = {k: torch.from_numpy(v.astype(np.float32)).to(where)
+             for k, v in arrays.items()}
+        layer = ManoLayer(asset, device=where)
+        head = head_cpu if where == 'cpu' else ManoRegHead(
+            layer, 1024, (1024, 512), device=where)
+        head.load_state_dict(head_cpu.state_dict())
+        rotmats = batch_rodrigues(x['aa'])
+
+        def head_step():
+            head.zero_grad(set_to_none=True)
+            out = head(x['feat'])
+            pts = torch.cat([out['verts3d'], out['joints3d'],
+                             out['mano_pose_aa'].reshape(-1, 16, 3)], 1)
+            (pts * x['cot']).sum().backward()
+            return out
+        return {'pca': lambda: mano_forward(layer, x['pose'],
+                                            betas=x['betas'],
+                                            trans=x['trans']),
+                'rotmats': lambda: mano_forward(layer, None,
+                                                betas=x['betas'],
+                                                pose_rotmats=rotmats),
+                'head': head_step}, head
+
+    def outputs(fns, head):
+        out = {}
+        for name in ('pca', 'rotmats'):
+            out[f'{name}_verts'], out[f'{name}_joints'] = fns[name]()
+        res = fns['head']()
+        out['head_verts'], out['head_joints'] = res['verts3d'], \
+            res['joints3d']
+        out.update({f'grad {k}': p.grad for k, p in
+                    head.named_parameters()})
+        return {k: v.detach().double().cpu() for k, v in out.items()}
+
+    cpu_fns, cpu_head = calls('cpu')
+    want = outputs(cpu_fns, cpu_head)
+    fns, head = calls(dev)
+    got = outputs(fns, head)
+    errs = {}
+    for k, w in want.items():
+        e = float((got[k] - w).abs().max())
+        limit = MANO_TOL['grad' if k.startswith('grad') else 'mesh'] \
+            * max(1.0, float(w.abs().max()))
+        errs[k] = e / limit
+        if not e <= limit or not bool(torch.isfinite(got[k]).all()):
+            raise AssertionError(f'mano {k}: the card lies {e} from the CPU '
+                                 f'(limit {limit})')
+    timing = {}
+    for name, fn in fns.items():
+        ms = cuda_ms(fn, MANO_ITERS)
+        _, sites = count_waits(fn)
+        timing[name] = {'ms': round(ms, 4),
+                        'host_ms': round(host_ms(fn, MANO_ITERS), 4),
+                        'waits_per_call': sum(sites.values()),
+                        'wait_sites': dict(sites)}
+    log('mano', batch=BATCH, verts=778, tol=json.dumps(MANO_TOL),
+        worst_over_tol=json.dumps(max(errs.items(), key=lambda kv: kv[1])),
+        errs_over_tol=json.dumps({k: float(f'{v:.3g}')
+                                  for k, v in errs.items()}),
+        calls=json.dumps(timing),
+        seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
+
+def check_desa_dense_train(dev, kernels, card):
+    """DESA's dense train form (models/desa.py, dense_train=True) in the
+    KPFusion-resnet-18 train step, float32, TF32 off:
+    1. compare_steps of the dense step against the gather step, both on
+       the card, at DENSE_TRAIN_BATCH: the loss, every running statistic,
+       every parameter and the update within TRAIN_TOL['float32'], the
+       controls outside it.
+    2. timed_train_steps (ms a step, peak memory, no launch) of the dense
+       step at the first batch of DENSE_TIMED_BATCHES that fits in the
+       card's memory, and of the gather step at batch 64 in the same
+       call."""
+    import torch
+    t0 = time.perf_counter()
+    net = 'KPFusion-resnet-18'
+    vs_gather = compare_steps([(dev, False), (dev, True)], 'float32', net,
+                              DENSE_TRAIN_BATCH)
+    state, _, _, gather = timed_train_steps(dev, kernels, 'float32', net)
+    del state
+    too_big, dense = [], None
+    for batch_size in DENSE_TIMED_BATCHES:
+        try:
+            state, _, _, dense = timed_train_steps(
+                dev, kernels, 'float32', net, batch_size=batch_size,
+                dense_train=True)
+        except torch.cuda.OutOfMemoryError:
+            too_big.append(batch_size)
+        state = None
+        # after the handler: its traceback no longer holds the tensors
+        torch.cuda.empty_cache()
+        if dense is not None:
+            break
+    if dense is None:
+        raise AssertionError(f'the dense train step fits no batch of '
+                             f'{DENSE_TIMED_BATCHES}')
+    log('desa_dense_train', dense_vs_gather=json.dumps(vs_gather),
+        dense_batch=batch_size, out_of_memory_at=json.dumps(too_big),
+        dense_ms_per_step=dense['ms_per_step'],
+        dense_peak_gib=dense['peak_gib'],
+        dense_losses=json.dumps(dense['losses']),
+        dense_step_launches=json.dumps(dense['step_launches']),
+        gather_batch=BATCH, gather_ms_per_step=gather['ms_per_step'],
+        gather_peak_gib=gather['peak_gib'],
+        seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2219,6 +2513,9 @@ def main():
     check_data(dev, kernels, card)
     check_demo(dev, kernels, card)
     check_backbones(dev, kernels, card, batch)
+    check_feature_types(dev, kernels, card)
+    check_mano(dev, card)
+    check_desa_dense_train(dev, kernels, card)
 
     replaces = {'pixel_sampler': 'pixel_sampler_pallas.py:212',
                 'desa_dense': 'desa_dense_pallas.py:257',

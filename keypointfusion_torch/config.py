@@ -6,10 +6,13 @@ loaders read, with the names and defaults of the JAX package's `Config`
 singleton. The port keeps its own copy so that it imports nothing from the
 JAX package. `flatten_opt` is left out: it only picks optax's moment
 layout (one raveled vector or one per leaf), and torch's optimizers keep
-their moments per tensor.
+their moments per tensor. So are `mesh_axis` and `sync_batchnorm`, the
+JAX package's multi-device knobs: the port runs on one card (ROADMAP.md
+§1 #18).
 """
 
 import dataclasses
+import os.path as osp
 from typing import List, Tuple
 
 JOINT = {
@@ -80,6 +83,10 @@ class Config:
     deconv_weight: float = 1.
     spatial_weight: Tuple[float, ...] = (10., 10., 10.)
     spatial_epoch: Tuple[int, ...] = (24, 24, 24)
+    # accepted for config-surface compatibility; dead in the reference too
+    # (defined in its config but never read)
+    downsample: int = 2               # [1, 2, 4, 8]
+    awr: bool = True
 
     feature_type: Tuple[str, ...] = ('weight_offset',)
     feature_para: Tuple[float, ...] = (0.8,)
@@ -87,12 +94,18 @@ class Config:
     # per-output supervision targets: 1 = dense pixel stage (backbones),
     # 2/3 = 3D / 2D-refined KFAM joint stages
     stage_type: Tuple[int, ...] = (1, 1, 2, 3, 2, 3)
+    # directory of MANO_RIGHT.pkl / MANO_LEFT.pkl (mano/assets.py)
+    mano_path: str = osp.join('.', 'assets', 'mano')
 
     # the model's compute dtype, build_kpfusion's default: 'float32' |
     # 'bfloat16' | 'mixed' (training: bfloat16 backbones, float32 head).
     # StreamingEngine takes its own (bfloat16), as JAX's does.
     compute_dtype: str = 'float32'
     seed: int = 23455
+    # JAX's approx_min_k pixel selection for the sampler (faster on a TPU);
+    # off the TPU approx_min_k is exact, and the port takes the exact
+    # selection whatever the flag (models/kpfusion.py)
+    fast_topk: bool = False
     # recompute the forward in the train step's backward
     # (torch.utils.checkpoint): activation memory for compute
     remat: bool = False

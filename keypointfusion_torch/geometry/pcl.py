@@ -27,6 +27,14 @@ def topk_smallest(d2: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def topk_largest(x: torch.Tensor, k: int):
+    """The k largest entries along the last axis in descending order, the
+    lower index first among equal values, as lax.top_k orders them.
+    Returns (values, int64 indices)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def inverse_distance_weights(dist: torch.Tensor) -> torch.Tensor:
     """1/(d2 + 1e-8), divided by its sum + 1e-8; the sum runs over the k
     slots left to right, as the CUDA sampler adds them."""

@@ -34,9 +34,10 @@ from keypointfusion_torch.kernels.desa_dense import (
     serving_weights,
 )
 from keypointfusion_torch.models.layers import linear
+from keypointfusion_torch.models.norm import weighted_batch_norm
 from keypointfusion_torch.models.resnet import init_conv
 from keypointfusion_torch.ops.ball_query import (
-    ball_query_group, group_features,
+    ball_query_group, exclusive_rank, group_features,
 )
 from keypointfusion_torch.ops.pairwise import pairwise_sqdist
 
@@ -49,15 +50,41 @@ def fold_conv_bn(conv: nn.Module, bn: nn.Module):
                    bn.running_var, bn.eps)
 
 
+def dense_group_masks(d2, radius: float, s: int):
+    """The dense form's selection for one radius, from d2 [B,J,M].
+
+    Returns (mask [B,J,M] bool: the group's points, the first S in-ball
+    ones or an empty ball's closest point, which feed the max; weights
+    [B,J,M]: how many of the gather form's S slots each point fills,
+    summing to S per (b, j)). The gather form fills a short group's slots
+    by repeating slot 0, so the first in-ball point counts 1 + (S - k)
+    when the ball holds k < S points, and an empty ball's closest point S
+    (the lowest index among equals)."""
+    in_ball = d2 < radius * radius
+    rank_in = exclusive_rank(in_ball)
+    sel_in = in_ball & (rank_in < s)
+    k_total = in_ball.sum(-1, keepdim=True)
+    n_fill = (s - torch.clamp_max(k_total, s)).float()
+    first_in = (in_ball & (rank_in == 0)).float()
+    w = sel_in.float() + n_fill * first_in
+    empty = k_total == 0
+    closest = F.one_hot(torch.argmin(d2, -1), d2.shape[-1]).bool()
+    w = torch.where(empty, float(s) * closest.float(), w)
+    mask = sel_in | (empty & closest)
+    return mask, w
+
+
 class DESA(nn.Module):
     compute_dtype = torch.float32
 
     def __init__(self, in_channel: int = 128, mlp: Sequence[int] = (128, 128),
                  num_samples: Sequence[int] = (64, 64, 64),
-                 radius: Sequence[float] = (0.1, 0.2, 0.4)):
+                 radius: Sequence[float] = (0.1, 0.2, 0.4),
+                 dense_train: bool = False):
         super().__init__()
         if len(mlp) != 2:
             raise NotImplementedError('DESA is ported for a 2-layer MLP')
+        self.dense_train = dense_train
         self.num_samples = tuple(num_samples)
         self.radius = tuple(radius)
         scales = range(len(radius))
@@ -121,14 +148,21 @@ class DESA(nn.Module):
             hit[pack] = make(hit[None])
         return hit[pack]
 
-    def _dense_bn(self, conv: nn.Module, bn: nn.Module, x):
-        """conv (1x1, as a Dense over the last axis) then bn in train
-        mode over every axis but the last, in its parameters' dtype
-        (float32), in the compute dtype out (flax Dense and TorchBatchNorm
-        with dtype=...)."""
+    def _dense(self, conv: nn.Module, x):
+        """conv (1x1) as a Dense over the last axis, in the compute dtype
+        (flax Dense with dtype=...)."""
         dt = self.compute_dtype
         w = conv.weight.reshape(conv.weight.shape[0], -1)
-        y = linear(x, w.to(dt), conv.bias.to(dt), dt).to(bn.weight.dtype)
+        return linear(x, w.to(dt), conv.bias.to(dt), dt)
+
+    def _bn(self, bn: nn.Module, y, weights=None):
+        """bn in train mode over every axis but the last, in its
+        parameters' dtype (float32), in the compute dtype out
+        (TorchBatchNorm with dtype=...); weighted statistics when
+        `weights` is given."""
+        if weights is not None:
+            return weighted_batch_norm(y, weights, bn).to(self.compute_dtype)
+        y = y.to(bn.weight.dtype)
         # what nn.BatchNorm2d's forward does in train mode, on [rows, C]:
         # the module takes only 4-D inputs, and cuDNN's kernels for a
         # [rows, C, 1, 1] view took 160 ms of a 255 ms step on the H100
@@ -136,7 +170,46 @@ class DESA(nn.Module):
         out = F.batch_norm(y.reshape(-1, y.shape[-1]), bn.running_mean,
                            bn.running_var, bn.weight, bn.bias, True,
                            bn.momentum, bn.eps)
-        return out.reshape(y.shape).to(dt)
+        return out.reshape(y.shape).to(self.compute_dtype)
+
+    def _dense_bn(self, conv: nn.Module, bn: nn.Module, x):
+        return self._bn(bn, self._dense(conv, x))
+
+    def _gather_scale(self, i, r, s, d2, support_xyz, support_feat,
+                      node_xyz, node_feat):
+        """One radius of the gather form: ([B,J,S,C] rows of the group's
+        slots, the max's mask [B,J,S])."""
+        idx, valid, rel_xyz = ball_query_group(support_xyz, node_xyz, r, s,
+                                               d2=d2)
+        grouped = group_features(support_feat, idx)
+        loc = self._dense_bn(self.conv_l0_blocks[i], self.bn_l0_blocks[i],
+                             rel_xyz / r)
+        feat = self._dense_bn(self.conv_f0_blocks[i], self.bn_f0_blocks[i],
+                              grouped - node_feat[:, :, None])
+        h = torch.relu(loc + feat)
+        h = torch.relu(self._dense_bn(self.conv_blocks[i][0],
+                                      self.bn_blocks[i][0], h))
+        return h, valid
+
+    def _dense_scale(self, i, r, s, d2, support_xyz, support_feat,
+                     node_xyz, node_feat):
+        """One radius of the dense train form: ([B,J,M,C] rows of every
+        support point, the max's mask [B,J,M])."""
+        mask, bn_w = dense_group_masks(d2, r, s)
+        conv_l, conv_f = self.conv_l0_blocks[i], self.conv_f0_blocks[i]
+        zl = self._dense(conv_l, torch.zeros_like(node_xyz[:, :1]))
+        ls = self._dense(conv_l, support_xyz)                  # [B,M,C]
+        ln = self._dense(conv_l, node_xyz)                     # [B,J,C]
+        loc = (ls[:, None] - ln[:, :, None]) / r + zl[:, :, None]
+        zf = self._dense(conv_f, torch.zeros_like(node_feat[:, :1]))
+        fs = self._dense(conv_f, support_feat)
+        fn = self._dense(conv_f, node_feat)
+        feat = fs[:, None] - fn[:, :, None] + zf[:, :, None]
+        h = torch.relu(self._bn(self.bn_l0_blocks[i], loc, bn_w)
+                       + self._bn(self.bn_f0_blocks[i], feat, bn_w))
+        h = self._dense(self.conv_blocks[i][0], h)
+        h = torch.relu(self._bn(self.bn_blocks[i][0], h, bn_w))
+        return h, mask
 
     def _train_forward(self, pcl_feat, node_feat, pcl_xyz, node_xyz):
         dt = self.compute_dtype
@@ -147,20 +220,12 @@ class DESA(nn.Module):
         d2 = pairwise_sqdist(node_xyz, support_xyz)
         outs = []
         for i, (r, s) in enumerate(zip(self.radius, self.num_samples)):
-            idx, valid, rel_xyz = ball_query_group(
-                support_xyz, node_xyz, r, s, d2=d2)
-            grouped = group_features(support_feat, idx)
-            loc = self._dense_bn(self.conv_l0_blocks[i],
-                                 self.bn_l0_blocks[i], rel_xyz / r)
-            feat = self._dense_bn(self.conv_f0_blocks[i],
-                                  self.bn_f0_blocks[i],
-                                  grouped - node_feat[:, :, None])
-            h = torch.relu(loc + feat)
-            h = torch.relu(self._dense_bn(self.conv_blocks[i][0],
-                                          self.bn_blocks[i][0], h))
-            h = torch.where(valid[..., None], h,
-                            torch.full_like(h, float('-inf')))
-            outs.append(h.amax(dim=2))
+            scale = self._dense_scale if self.dense_train \
+                else self._gather_scale
+            h, valid = scale(i, r, s, d2, support_xyz, support_feat,
+                             node_xyz, node_feat)
+            outs.append(h.masked_fill(~valid[..., None],
+                                      float('-inf')).amax(dim=2))
         outs.append(node_feat)
         fused = self._dense_bn(self.fusion[0], self.fusion[1],
                                torch.cat(outs, dim=-1))
@@ -170,7 +235,8 @@ class DESA(nn.Module):
                 use_kernel: bool = True):
         """pcl_feat [B,N,C], node_feat [B,J,C], pcl_xyz [B,N,3],
         node_xyz [B,J,3] -> [B,J,C]. use_kernel=False runs the plain
-        version on any device; train mode runs the gather form."""
+        version on any device; train mode runs the gather form, or the
+        dense form with dense_train."""
         if self.training:
             return self._train_forward(pcl_feat, node_feat, pcl_xyz,
                                        node_xyz)
@@ -181,3 +247,12 @@ class DESA(nn.Module):
         return fn(pcl_feat.to(dt).contiguous(), node_feat.to(dt).contiguous(),
                   pcl_xyz.float().contiguous(), node_xyz.float().contiguous(),
                   w, self.radius, self.num_samples, mode).to(dt)
+
+
+def set_dense_train(module: nn.Module, on: bool = True) -> nn.Module:
+    """Set `dense_train` on every DESA in `module` (a KPFusion, a fusion
+    block): train mode then runs DESA's dense form, or its gather form."""
+    for m in module.modules():
+        if isinstance(m, DESA):
+            m.dense_train = on
+    return module

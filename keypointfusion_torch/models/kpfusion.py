@@ -21,6 +21,13 @@ launch the CUDA kernels; on CPU tensors they run their plain versions.
 False runs the kernels' plain versions on any device; that is how
 chip_smoke.py compares the two on the card.
 
+`fast_topk` is the JAX module's flag, which picks lax.approx_min_k for
+the sampler's pixel selection. Off the TPU approx_min_k is exact: on the
+CPU it gives top_k's distances, and its pixels but where two pixels lie
+exactly as far at the k-th place, where it may take the other one. The
+port takes top_k's selection (the lower index first) whatever the flag;
+the flag is kept so that a JAX config carries over.
+
 Train mode (`.train()`) runs the JAX module's train path: BatchNorm with
 batch statistics, the transformers' dropout at `dropout` with masks from
 the `generator` passed to forward, DESA's gather form, and no kernel (K1
@@ -80,10 +87,11 @@ class KPFusion(nn.Module):
                  use_kernels: bool = True,
                  dtype: torch.dtype = torch.float32,
                  backbone_dtype: Optional[torch.dtype] = None,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, fast_topk: bool = False):
         super().__init__()
         j = joint_num
         self.joint_num = j
+        self.fast_topk = fast_topk
         self.use_kernels = use_kernels
         self.dtype = dtype
         self.backbone_dtype = backbone_dtype or dtype
@@ -176,5 +184,5 @@ def build_kpfusion(cfg: Config = Config(), device=None, seed: int = 0,
         torch.manual_seed(seed)
         model = KPFusion(cfg.net, cfg.joint_num, use_kernels=use_kernels,
                          dtype=dtype, backbone_dtype=backbone_dtype,
-                         dropout=dropout)
+                         dropout=dropout, fast_topk=cfg.fast_topk)
     return model.eval().to(device)

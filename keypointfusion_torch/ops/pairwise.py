@@ -21,6 +21,14 @@ def sqnorm3(x: torch.Tensor) -> torch.Tensor:
         + x[..., 2] * x[..., 2]
 
 
+def _sqnorm(x: torch.Tensor) -> torch.Tensor:
+    """x [..., C] -> the sum of squares, left to right (sqnorm3 for C=3)."""
+    out = x[..., 0] * x[..., 0]
+    for i in range(1, x.shape[-1]):
+        out = out + x[..., i] * x[..., i]
+    return out
+
+
 def fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """x*y + z with one rounding to float32, through float64: the float64
     product of two float32 values is exact, and rounding the float64 sum
@@ -30,12 +38,13 @@ def fma(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [B,N,3], b [B,M,3] -> [B,N,M] squared Euclidean distances (>= 0),
-    float32."""
+    """a [B,N,C], b [B,M,C] -> [B,N,M] squared Euclidean distances (>= 0),
+    float32. C is 3 for points; the order above holds for any C (2 for
+    pixel coordinates, geometry/sampling.py), left to right."""
     a = a.float()
     b = b.float()
-    ax, ay, az = (a[:, :, None, i] for i in range(3))
-    bx, by, bz = (b[:, None, :, i] for i in range(3))
-    cross = fma(az, bz, fma(ay, by, ax * bx))
-    d2 = (sqnorm3(a)[:, :, None] + sqnorm3(b)[:, None, :]) - 2.0 * cross
+    cross = a[:, :, None, 0] * b[:, None, :, 0]
+    for i in range(1, a.shape[-1]):
+        cross = fma(a[:, :, None, i], b[:, None, :, i], cross)
+    d2 = (_sqnorm(a)[:, :, None] + _sqnorm(b)[:, None, :]) - 2.0 * cross
     return torch.clamp_min(d2, 0.0)

@@ -25,6 +25,9 @@ state_dict, the DataParallel `module.` prefix stripped) and
 `merge_partial` takes from it each tensor the model has under the same
 name and shape, the reference's filtered merge with the JAX package's
 shape gate (keypointfusion_tpu/utils/torch_convert.py:merge_partial).
+
+`jax_mano_head_to_state_dict` and `mano_head_state_dict_to_jax` carry the
+MANO regression head's Dense layers both ways.
 """
 
 from __future__ import annotations
@@ -319,3 +322,33 @@ def load_kpfusion_weights(model: torch.nn.Module, sd: StateDict) -> None:
     if missing:
         raise KeyError(f'{len(missing)} weights missing from the '
                        f'checkpoint: {missing[:8]}')
+
+
+def jax_mano_head_to_state_dict(params: dict) -> StateDict:
+    """A JAX ManoRegHead's {'params'} subtree (numpy leaves) -> the port's
+    mano/mano_head.py:ManoRegHead state_dict: each flax Dense kernel
+    [in, out] and bias -> nn.Linear weight [out, in] and bias, under the
+    flax module's names (base_0, base_1, ... for its `neurons`, pose_reg,
+    shape_reg). The reference's mano_regHead names could not be read
+    here, and no released checkpoint holds this head (the reference never
+    wires it into KPFusion), so the names are the flax module's."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        _dense(sd, name, p)
+    return sd
+
+
+def mano_head_state_dict_to_jax(sd: StateDict) -> dict:
+    """The inverse of jax_mano_head_to_state_dict: the port's ManoRegHead
+    state_dict -> flax params {name: {'kernel' [in, out], 'bias'}} (numpy
+    float32)."""
+    params: dict = {}
+    for key, v in sd.items():
+        name, leaf = key.rsplit('.', 1)
+        v = v.detach().cpu().float().numpy()
+        layer = params.setdefault(name, {})
+        if leaf == 'weight':
+            layer['kernel'] = v.T.copy()
+        else:
+            layer['bias'] = v.copy()
+    return params

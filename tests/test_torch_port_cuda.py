@@ -47,6 +47,8 @@ Tolerances:
     empty (B=1, J=21; B=3), more groups than the grid has blocks, and a
     group whose every slot but 0 lies outside the ball; rel uniform in
     [-1.2, 1.2] everywhere, so slots fall on both sides of the mask.
+  * The feature types' decode, MANO and DESA's dense train step hold
+    chip_smoke.py's limits (TRAINER_MM_TOL, MANO_TOL, TRAIN_TOL).
 """
 
 import numpy as np
@@ -675,3 +677,87 @@ def test_demo_kernels_match_plain_on_card(cuda_device):
     for g, w in zip(*answers):
         assert np.isfinite(g).all()
         assert np.abs(g - w).max() <= DEMO_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('feature_type', ['offset', 'heatmap',
+                                          'weight_offset_nosoftmax'])
+def test_feature_type_decode_kernels_match_plain_on_card(cuda_device,
+                                                         feature_type):
+    """An eval batch (batch 2, 1024 points) decoded by the feature type
+    through the trainer's _decode_stage (chip_smoke.py:decode_stages):
+    K2 'highest' once and K1 'highest' twice, and every stage within
+    chip_smoke.py's TRAINER_MM_TOL (mm) of the plain path, non-finite
+    joints (the nosoftmax decode on random weights) at the same places."""
+    from chip_smoke import TRAINER_MM_TOL, decode_stages
+    from keypointfusion_torch.training.train_step import batch_to_device
+    cfg = Config(feature_type=(feature_type,))
+    batch = batch_to_device(synthetic_batch(batch_size=2, point_num=1024,
+                                            seed=5), cuda_device)
+    model = build_kpfusion(cfg, device=cuda_device, seed=0)
+    k1.KERNEL.launches = k2.KERNEL.launches = 0
+    got = decode_stages(model, batch, cfg, True)
+    assert (k2.KERNEL.launches, k1.KERNEL.launches) == (1, 2)
+    want = decode_stages(model, batch, cfg, False)
+    same = (got == want) | (got.isnan() & want.isnan())
+    assert float(torch.where(same, torch.zeros_like(got),
+                             (got - want).abs()).max()) <= TRAINER_MM_TOL
+
+
+@pytest.mark.cuda
+def test_mano_on_card_matches_cpu(cuda_device):
+    """mano_forward (PCA with betas and trans; rotation matrices) and
+    ManoRegHead's outputs and gradients at batch 4 on the card against the
+    CPU within chip_smoke.py's MANO_TOL of each tensor's scale, and no
+    wait for the card inside a call."""
+    from chip_smoke import MANO_TOL, count_waits
+    from keypointfusion_torch.mano.assets import synthetic_mano_model
+    from keypointfusion_torch.mano.mano_head import ManoRegHead
+    from keypointfusion_torch.mano.manolayer import (
+        ManoLayer, batch_rodrigues, mano_forward,
+    )
+    asset = synthetic_mano_model()
+    rng = np.random.RandomState(0)
+    x = {k: torch.from_numpy(v.astype(np.float32)) for k, v in {
+        'pose': rng.randn(4, 48) * 0.5, 'betas': rng.randn(4, 10),
+        'trans': rng.randn(4, 3) * 0.1, 'aa': rng.randn(4, 16, 3) * 0.7,
+        'feat': rng.randn(4, 256)}.items()}
+    cpu_head = ManoRegHead(asset, 256, (128, 64), device='cpu')
+
+    def run(where):
+        layer = ManoLayer(asset, device=where)
+        head = ManoRegHead(layer, 256, (128, 64), device=where)
+        head.load_state_dict(cpu_head.state_dict())
+        d = {k: v.to(where) for k, v in x.items()}
+        out = dict(zip(('pca_v', 'pca_j'), mano_forward(
+            layer, d['pose'], betas=d['betas'], trans=d['trans'])))
+        out.update(zip(('rot_v', 'rot_j'), mano_forward(
+            layer, None, betas=d['betas'],
+            pose_rotmats=batch_rodrigues(d['aa']))))
+        res = head(d['feat'])
+        (res['verts3d'].square().mean() + res['joints3d'].square().mean()
+         + res['mano_pose_aa'].square().mean()).backward()
+        out.update({k: res[k] for k in ('verts3d', 'joints3d')})
+        out.update({f'grad {k}': p.grad for k, p in
+                    head.named_parameters()})
+        if where != 'cpu':
+            _, sites = count_waits(lambda: head(d['feat']))
+            assert not sites, sites
+        return {k: v.detach().cpu().double() for k, v in out.items()}
+
+    want, got = run('cpu'), run(cuda_device)
+    for k, w in want.items():
+        tol = MANO_TOL['grad' if k.startswith('grad') else 'mesh']
+        assert float((got[k] - w).abs().max()) \
+            <= tol * max(1.0, float(w.abs().max())), k
+
+
+@pytest.mark.cuda
+def test_dense_train_step_matches_gather_on_card(cuda_device):
+    """chip_smoke.py's compare_steps of the train step with DESA's dense
+    form against its gather form, both on the card, at batch 2 with 256
+    points: within TRAIN_TOL['float32'] (it raises otherwise)."""
+    from chip_smoke import compare_steps
+    out = compare_steps([(cuda_device, False), (cuda_device, True)],
+                        'float32', 'KPFusion-resnet-18', 2)
+    assert out['update_rel'] <= out['tol']['update_rel']

@@ -87,29 +87,36 @@ def test_decoders_match_jax(batch):
 
 
 def test_feature_dispatch_matches_jax_and_rejects_the_rest(batch):
-    """'weight_offset' encodes with joint_to_offset and decodes the 5J map
-    with offset_to_joint_weight, as JAX's dispatch does; any other
-    feature type raises, naming the ROADMAP item."""
+    """Every feature type JAX's dispatch decodes ('weight_offset',
+    'offset', 'heatmap', 'weight_offset_nosoftmax') encodes and decodes the
+    5J map as JAX's does; the types JAX only encodes raise on decode, as
+    JAX's do, and an unknown type raises on encode (tests/
+    test_torch_port_codecs_extra.py holds each codec)."""
     rng = np.random.RandomState(1)
     pixel_pd = rng.randn(2, 32, 32, 105).astype(np.float32)
-    close(codecs_extra.joint_to_feature(t(batch['uvd_gt']),
-                                        t(batch['depth']), (0.8,), 32,
-                                        ('weight_offset',)),
-          jextra.joint_to_feature(batch['uvd_gt'], batch['depth'], (0.8,),
-                                  32, ('weight_offset',)), CODEC_TOL)
-    close(codecs_extra.feature_to_joint(t(batch['depth']), t(pixel_pd),
-                                        ('weight_offset',), (0.8,), 21),
-          jextra.feature_to_joint(batch['depth'], pixel_pd,
-                                  ('weight_offset',), (0.8,), 21),
-          CODEC_TOL)
-    for ftype in ('offset', 'heatmap', 'weight_offset_nosoftmax'):
-        with pytest.raises(NotImplementedError, match='item 17'):
+    pixel_pd[..., 84:] = np.abs(pixel_pd[..., 84:]) + 0.1
+    for ftype in ('weight_offset', 'offset', 'heatmap',
+                  'weight_offset_nosoftmax'):
+        close(codecs_extra.joint_to_feature(t(batch['uvd_gt']),
+                                            t(batch['depth']), (0.8,), 32,
+                                            (ftype,)),
+              jextra.joint_to_feature(batch['uvd_gt'], batch['depth'],
+                                      (0.8,), 32, (ftype,)), CODEC_TOL)
+        close(codecs_extra.feature_to_joint(t(batch['depth']), t(pixel_pd),
+                                            (ftype,), (0.8,), 21),
+              jextra.feature_to_joint(batch['depth'], pixel_pd, (ftype,),
+                                      (0.8,), 21),
+              CODEC_TOL)
+    for ftype in ('heatmap_depth', 'weight_pos'):
+        with pytest.raises(NotImplementedError):
+            jextra.feature_to_joint(batch['depth'], pixel_pd, (ftype,),
+                                    (0.8,), 21)
+        with pytest.raises(NotImplementedError):
             codecs_extra.feature_to_joint(t(batch['depth']), t(pixel_pd),
                                           (ftype,), (0.8,), 21)
-        with pytest.raises(NotImplementedError, match='item 17'):
-            codecs_extra.joint_to_feature(t(batch['uvd_gt']),
-                                          t(batch['depth']), (0.8,), 32,
-                                          (ftype,))
+    with pytest.raises(NotImplementedError):
+        codecs_extra.joint_to_feature(t(batch['uvd_gt']), t(batch['depth']),
+                                      (0.8,), 32, ('no_such_type',))
 
 
 def test_smooth_l1_loss_matches_jax():

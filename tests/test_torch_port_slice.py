@@ -42,6 +42,9 @@ from keypointfusion_torch.config import Config
 from keypointfusion_torch.data.synthetic import synthetic_frames
 from keypointfusion_torch.demo import ModelRGBD
 from keypointfusion_torch.geometry.camera import CropFrame
+from keypointfusion_torch.mano.assets import synthetic_mano_model
+from keypointfusion_torch.mano.mano_head import ManoRegHead
+from keypointfusion_torch.mano.manolayer import ManoLayer
 from keypointfusion_torch.models.kpfusion import KPFusion, build_kpfusion
 from keypointfusion_torch.serving import StreamingEngine
 from keypointfusion_torch.utils.weights import jax_kpfusion_to_state_dict
@@ -197,6 +200,12 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         StreamingEngine(Config(point_num=128), batch_size=2)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         ModelRGBD(Config(), (600.0, 600.0, 320.0, 240.0))
+    asset = synthetic_mano_model()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ManoLayer(asset)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ManoRegHead(asset, feature_size=16, neurons=(8,))
+    assert ManoLayer(asset, device='cpu').v_template.device.type == 'cpu'
     model = build_kpfusion(Config(), device='cpu')
     assert not model.training
     with pytest.raises(ValueError, match='Generator'):
@@ -239,7 +248,14 @@ def test_port_imports_no_jax():
             'keypointfusion_torch.demo',
             'keypointfusion_torch.utils.vis',
             'keypointfusion_torch.utils.raster',
-            'keypointfusion_torch.models.convnext'} <= set(names)
+            'keypointfusion_torch.models.convnext',
+            'keypointfusion_torch.ops.codecs_extra',
+            'keypointfusion_torch.geometry.sampling',
+            'keypointfusion_torch.mano.assets',
+            'keypointfusion_torch.mano.manolayer',
+            'keypointfusion_torch.mano.mano_head',
+            'keypointfusion_torch.utils.rotations',
+            'keypointfusion_torch.utils.graph'} <= set(names)
     code = ('import sys\n'
             f'for name in {names!r}:\n'
             '    __import__(name)\n'
