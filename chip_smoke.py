@@ -28,9 +28,17 @@ ConvNeXt-T, the train step); the config's other feature types
 and timed, and with 'weight_offset_nosoftmax' each decoding an eval batch
 through the trainer's decode, the kernels against the plain path); MANO
 (check_mano: mano_forward and ManoRegHead at batch 64, card against
-CPU, ms and host waits a call); and DESA's dense train form
+CPU, ms and host waits a call); DESA's dense train form
 (check_desa_dense_train: against the gather form on the card, then ms a
-step and peak memory). Weights are random, drawn from a seed.
+step and peak memory); the optional model families
+(check_optional_models: PoseNet, CenterNetRegressor, CBAM,
+RGBDResNetUNet, DetrDecoder and SpatialAggregateTR at full width, card
+against CPU in eval and one train step, then ms and peak memory at batch
+64, no kernel launched); and the off-path data modules
+(check_extra_data: patch warps, crops, RHD helpers and heatmaps against
+the JAX package's outputs in a fixture, bit for bit; occlusion masks and
+visibility on the card against the CPU). Weights are random, drawn from
+a seed.
 Every phase prints one line; then a JSON line describing each kernel, the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
@@ -199,6 +207,42 @@ MANO_ITERS = 20
 # fits on the card
 DENSE_TRAIN_BATCH = 8
 DENSE_TIMED_BATCHES = (BATCH, 48, 32, 16)
+# the [optional_models] phase: each family at full width, the card
+# against the CPU port at OPTIONAL_CHECK_BATCH in float32 (TF32 off):
+# the eval forward within 'forward' of each output's scale (at least 1);
+# after one train-mode forward and backward, the gradients and the
+# running statistics' change, each as one L2 norm over every tensor at
+# once relative to the CPU's, within OPTIONAL_BUDGET times the CPU's own
+# float32 distance from its float64 run, and at least within 'grad' and
+# 'stat'. Train-mode BatchNorms over few values make float32 gradients
+# ill-conditioned: PoseNet's float32 gradients lie 3.7% (L2) from
+# float64 on the CPU, and two CPU builds (with and without oneDNN) 1.9%
+# from each other; CBAM's 1e-6. The control, the CPU's run on inputs
+# moved by OPTIONAL_CONTROL of their scale (noise: a train-mode BatchNorm
+# would cancel a scaling), must fail every limit. Timed at BATCH over
+# OPTIONAL_ITERS calls after a warm-up.
+OPTIONAL_CHECK_BATCH = 4
+OPTIONAL_TOL = {'forward': 1e-4, 'grad': 1e-3, 'stat': 1e-4}
+OPTIONAL_BUDGET = 3.0
+OPTIONAL_CONTROL = 1e-2
+OPTIONAL_ITERS = 10
+# the [extra_data] phase: the host functions against the JAX package's
+# outputs in this file (scripts/make_torch_port_extra_fixture.py), bit
+# for bit; mask_image and joint_visibility on the card against the CPU
+# with the same draws at these sizes, expected equal
+EXTRA_FIXTURE = 'tests/fixtures/torch_port_extra/extra.npz'
+# host ms a call at the datasets' own sizes (the fixture's are toy ones):
+# a FreiHAND 224x224 RGB frame warped to patch_augmentation's default
+# 256x256, an RHD 320x320 frame and mask, create_heatmap's default 64x64
+# maps, make_gaussian_heatmap on a batch of 64x64 maps
+EXTRA_FREIHAND = 224
+EXTRA_RHD = 320
+EXTRA_PATCH = (256, 256)
+EXTRA_HEATMAP = 64
+EXTRA_HOST_ITERS = 20
+EXTRA_MASK_SIZE = 128
+EXTRA_POINTS = 1024
+EXTRA_KERNEL = 0.17   # ~12 of the cloud's points a joint: some visible
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
            'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
 
@@ -2459,6 +2503,355 @@ def check_desa_dense_train(dev, kernels, card):
         seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
 
 
+def optional_families():
+    """{name: (constructor, input shapes at batch b)} of the
+    [optional_models] phase, NHWC, at full width: PoseNet (nstack 2,
+    inp_dim 256) on 128x128 depth, CenterNetRegressor on ResNet-18,
+    CBAM on [b, 32, 32, 256], RGBDResNetUNet on ResNet-18 with 128x128
+    RGB and depth, DetrDecoder and SpatialAggregateTR (hidden 128, 4
+    heads, 3 layers) over 32x32 image tokens and 21 joints."""
+    from keypointfusion_torch.models.legacy import (
+        CBAM, CenterNetRegressor, PoseNet,
+    )
+    from keypointfusion_torch.models.rgbd_fusion import RGBDResNetUNet
+    from keypointfusion_torch.models.transformer_extra import (
+        DetrDecoder, SpatialAggregateTR,
+    )
+    tr = dict(hidden=128, heads=4, layers=3)
+    return {
+        'posenet': (lambda **kw: PoseNet(nstack=2, inp_dim=256),
+                    lambda b: [(b, 128, 128, 1)]),
+        'centernet': (lambda **kw: CenterNetRegressor(depth=18),
+                      lambda b: [(b, 128, 128, 1)]),
+        'cbam': (lambda **kw: CBAM(256), lambda b: [(b, 32, 32, 256)]),
+        'rgbd_resnet_unet': (lambda **kw: RGBDResNetUNet(18),
+                             lambda b: [(b, 128, 128, 3), (b, 128, 128, 1)]),
+        'detr_decoder': (lambda **kw: DetrDecoder(**tr, **kw),
+                         lambda b: [(b, 21, 128), (b, 32, 32, 128)]),
+        'spatial_aggregate_tr': (
+            lambda **kw: SpatialAggregateTR(**tr, **kw),
+            lambda b: [(b, 32, 32, 128), (b, 21, 128)]),
+    }
+
+
+def family_inputs(shapes, seed, dev):
+    import torch
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
+            for s in shapes]
+
+
+def family_outputs(out):
+    import torch
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def family_pass(model, xs, cots):
+    """The eval outputs, then one train-mode forward and backward of
+    sum(out * cot) from the same state: (eval outputs, gradients, the
+    running statistics' change), float64 on the CPU."""
+    import torch
+    before = {k: b.detach().cpu().double().clone()
+              for k, b in model.named_buffers() if b.is_floating_point()}
+    model.eval()
+    with torch.no_grad():
+        evals = [o.detach().cpu().double()
+                 for o in family_outputs(model(*xs))]
+    model.train()
+    model.zero_grad(set_to_none=True)
+    outs = family_outputs(model(*xs))
+    sum((o * c).sum() for o, c in zip(outs, cots)).backward()
+    grads = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+             .detach().cpu().double() for k, p in model.named_parameters()}
+    stats = {k: b.detach().cpu().double() - before[k]
+             for k, b in model.named_buffers() if b.is_floating_point()}
+    return evals, grads, stats
+
+
+def family_distances(got, want):
+    """{'forward': the worst eval output's max abs error over its scale
+    (at least 1), 'grad': the L2 norm of the gradients' difference over
+    every tensor at once over that of `want`'s, 'stat': the same of the
+    running statistics' change} of `got` against `want` (family_pass
+    results)."""
+    evals, grads, stats = got
+    w_evals, w_grads, w_stats = want
+
+    def l2(a, b):
+        diff = sum(float((a[k] - w).square().sum()) for k, w in b.items())
+        return (diff / sum(float(w.square().sum()) for w in b.values())) \
+            ** 0.5
+    out = {'forward': max(float((g - w).abs().max())
+                          / max(1.0, float(w.abs().max()))
+                          for g, w in zip(evals, w_evals)),
+           'grad': l2(grads, w_grads)}
+    if w_stats:
+        out['stat'] = l2(stats, w_stats)
+    return out
+
+
+def family_errors(got, want, limits=None):
+    """family_distances over their limits (OPTIONAL_TOL by default)."""
+    limits = limits or OPTIONAL_TOL
+    return {k: v / limits[k] for k, v in family_distances(got,
+                                                          want).items()}
+
+
+def time_family(model, xs, gen):
+    """(eval ms, train step ms) at the inputs' batch: the eval forward,
+    and a train step (train-mode forward, backward of the mean square of
+    the outputs, Adam), CUDA events over OPTIONAL_ITERS calls after a
+    warm-up."""
+    import torch
+    kw = {} if gen is None else {'generator': gen}
+    model.eval()
+
+    def forward():
+        with torch.no_grad():
+            model(*xs, **kw)
+    eval_ms = cuda_ms(forward, OPTIONAL_ITERS)
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        outs = family_outputs(model(*xs, **kw))
+        sum(o.float().square().mean() for o in outs).backward()
+        opt.step()
+    train_ms = cuda_ms(step, OPTIONAL_ITERS)
+    torch.cuda.synchronize()
+    return eval_ms, train_ms
+
+
+def check_optional_models(dev, kernels, card):
+    """The optional model families (models/legacy.py, rgbd_fusion.py,
+    transformer_extra.py) at full width, float32 with TF32 off, weights
+    from torch seed 0 (optional_families):
+    1. the card against the CPU port at OPTIONAL_CHECK_BATCH: eval
+       outputs, then one train step's gradients and running statistics'
+       change (family_pass), DETR's layers at dropout 0, within the
+       limits of OPTIONAL_TOL and OPTIONAL_BUDGET (the CPU's float32
+       against its float64 pass); the control (the CPU's pass on moved
+       inputs) fails every limit.
+    2. timed at BATCH: eval forward and a train step with Adam (DETR's
+       dropout 0.1 from a card generator), ms each and the peak GiB.
+    3. no kernel launched across the phase.
+    One line, a JSON object by family."""
+    import copy
+    import torch
+    from keypointfusion_torch.models.layers import set_compute_dtype
+    t0 = time.perf_counter()
+    reset(kernels)
+    families = {}
+    for name, (make, shapes) in optional_families().items():
+        t1 = time.perf_counter()
+        is_tr = name in ('detr_decoder', 'spatial_aggregate_tr')
+        torch.manual_seed(0)
+        cpu = make(dropout=0.0) if is_tr else make()
+        xs_cpu = family_inputs(shapes(OPTIONAL_CHECK_BATCH), 1, 'cpu')
+        rng = np.random.RandomState(2)
+        moved = [x + OPTIONAL_CONTROL * float(x.abs().max())
+                 * torch.from_numpy(rng.randn(*x.shape).astype(np.float32))
+                 for x in xs_cpu]
+        with torch.no_grad():
+            cots = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32))
+                    for o in family_outputs(cpu.eval()(*xs_cpu))]
+        want = family_pass(copy.deepcopy(cpu), xs_cpu, cots)
+        own = family_distances(want, family_pass(
+            set_compute_dtype(copy.deepcopy(cpu).double(), torch.float64),
+            [x.double() for x in xs_cpu], [c.double() for c in cots]))
+        limits = {k: OPTIONAL_TOL[k] if k == 'forward' else
+                  max(OPTIONAL_TOL[k], OPTIONAL_BUDGET * v)
+                  for k, v in own.items()}
+        control = family_pass(copy.deepcopy(cpu), moved, cots)
+        got = family_pass(copy.deepcopy(cpu).to(dev),
+                          [x.to(dev) for x in xs_cpu],
+                          [c.to(dev) for c in cots])
+        errs = family_errors(got, want, limits)
+        ctrl = family_errors(control, want, limits)
+        bad = [k for k, v in errs.items() if not v <= 1.0]
+        bad += [f'control {k} passed' for k, v in ctrl.items()
+                if not v > 1.0]
+        if bad or not all(bool(torch.isfinite(e).all()) for e in got[0]):
+            raise AssertionError(f'optional_models {name}: {bad} (over '
+                                 f'limit: {errs}, control {ctrl})')
+        del got, want, control
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = make()
+        model.load_state_dict(cpu.state_dict())
+        model = model.to(dev)
+        xs = family_inputs(shapes(BATCH), 3, dev)
+        gen = torch.Generator(device=dev).manual_seed(4) if is_tr else None
+        eval_ms, train_ms = time_family(model, xs, gen)
+        families[name] = {
+            'limits': {k: float(f'{v:.3g}') for k, v in limits.items()},
+            'cpu_float32_vs_float64': {k: float(f'{v:.3g}')
+                                       for k, v in own.items()},
+            'over_tol': {k: float(f'{v:.3g}') for k, v in errs.items()},
+            'control_over_tol': {k: float(f'{v:.3g}')
+                                 for k, v in ctrl.items()},
+            'params_m': round(sum(p.numel() for p in model.parameters())
+                              / 1e6, 3),
+            'eval_ms': round(eval_ms, 4), 'train_step_ms': round(train_ms, 4),
+            'peak_gib': round(torch.cuda.max_memory_allocated() / 2 ** 30, 3),
+            'seconds': round(time.perf_counter() - t1, 2)}
+        del model, xs
+        torch.cuda.empty_cache()
+    launched = counts(kernels)
+    if any(launched.values()):
+        raise AssertionError(f'optional_models launched kernels: {launched}')
+    log('optional_models', batch=BATCH, check_batch=OPTIONAL_CHECK_BATCH,
+        tol=json.dumps(OPTIONAL_TOL), budget=OPTIONAL_BUDGET,
+        control=OPTIONAL_CONTROL,
+        families=json.dumps(families), launches=json.dumps(launched),
+        seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
+
+def extra_host_ms(patch_warp, extra_datasets):
+    """Host ms a call of the [extra_data] functions at the datasets' own
+    sizes, on frames drawn from a seed (EXTRA_HOST_ITERS calls each after
+    one untimed): patch_augmentation's train and eval draws on a FreiHAND
+    frame; preprocess_rhd, imcrop (padding: the hand lies at the frame's
+    edge) of the frame and of its mask, unify_mask of the cropped mask
+    and pad_img_to_fit_bbox on an RHD frame; create_heatmap;
+    make_gaussian_heatmap on BATCH frames."""
+    import random
+    rng = np.random.RandomState(9)
+    f, r, hm = EXTRA_FREIHAND, EXTRA_RHD, EXTRA_HEATMAP
+    frei = rng.randint(0, 256, (f, f, 3)).astype(np.uint8)
+    bbox = (40.0, 30.0, 150.0, 160.0)
+    rhd = rng.randint(0, 256, (r, r, 3)).astype(np.uint8)
+    mask = np.zeros((r, r, 3), np.uint8)
+    mask[200:310, 230:320] = rng.randint(2, 18, (110, 90, 1))
+    mask[20:60, 30:70] = rng.randint(18, 34, (40, 40, 1))
+    uv = rng.uniform(0, r, (42, 2))
+    xyz = rng.uniform(-0.2, 0.2, (42, 3))
+    spec = extra_datasets.preprocess_rhd(rhd, mask, uv, xyz)
+    center, size = spec[3], spec[4]
+    crop_mask = extra_datasets.imcrop(spec[1][:, :, 0].copy(), center,
+                                      size)[0]
+    heat_uv = rng.uniform(0, hm, (21, 2))
+    gauss_uv = rng.uniform(0, hm, (BATCH, 21, 2)).astype(np.float32)
+    aug = random.Random(0)
+    calls = {
+        'patch_augmentation_train': lambda: patch_warp.patch_augmentation(
+            frei, bbox, True, EXTRA_PATCH, rng=aug),
+        'patch_augmentation_eval': lambda: patch_warp.patch_augmentation(
+            frei, bbox, False, EXTRA_PATCH),
+        'preprocess_rhd': lambda: extra_datasets.preprocess_rhd(
+            rhd, mask, uv, xyz),
+        'imcrop_image': lambda: extra_datasets.imcrop(spec[0], center,
+                                                      size),
+        'imcrop_mask': lambda: extra_datasets.imcrop(
+            spec[1][:, :, 0].copy(), center, size),
+        'unify_mask': lambda: extra_datasets.unify_mask(crop_mask, spec[5]),
+        'pad_img_to_fit_bbox': lambda: extra_datasets.pad_img_to_fit_bbox(
+            rhd, -40, r + 40, -40, r + 40),
+        'create_heatmap': lambda: extra_datasets.create_heatmap(heat_uv,
+                                                                hm),
+        'make_gaussian_heatmap': lambda: extra_datasets.make_gaussian_heatmap(
+            gauss_uv, (hm, hm)),
+    }
+    if center[0] + size <= r:
+        raise AssertionError('extra_data: the timed RHD crop does not pad')
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(EXTRA_HOST_ITERS):
+            fn()
+        out[name] = round((time.perf_counter() - t0) / EXTRA_HOST_ITERS
+                          * 1e3, 4)
+    return out
+
+
+def check_extra_data(dev, kernels, card):
+    """The off-path data modules on the card's host (no cv2, no JAX):
+    1. data/patch_warp.py and data/extra_datasets.py on the inputs of
+       EXTRA_FIXTURE (tests/torch_port_extra_cases.py's calls:
+       patch_augmentation's train and eval draws, imcrop,
+       pad_img_to_fit_bbox, preprocess_rhd, unify_mask, create_heatmap,
+       make_gaussian_heatmap) against the JAX package's outputs stored
+       there, bit for bit (dtype, shape, values).
+    2. host ms a call of the same functions at the datasets' own sizes
+       (extra_host_ms).
+    3. data/occlusion.py's mask_image (draws from a CPU generator, moved
+       to the card) and joint_visibility on the card against the CPU on
+       the same inputs, expected equal; ms a call on the card at batch 64
+       (mask_image with its draws from a card generator), a
+       EXTRA_MASK_SIZE crop and EXTRA_POINTS cloud points.
+    4. no kernel launched."""
+    import importlib.util
+    import os
+    import torch
+    from keypointfusion_torch.data import extra_datasets, occlusion
+    from keypointfusion_torch.data import patch_warp
+    # by path: an installed package named `tests` would hide the repo's
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        'torch_port_extra_cases',
+        os.path.join(root, 'tests', 'torch_port_extra_cases.py'))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    t0 = time.perf_counter()
+    reset(kernels)
+    stored = np.load(os.path.join(root, EXTRA_FIXTURE))
+    inp = {k[3:]: stored[k] for k in stored.files if k.startswith('in_')}
+    got = cases.case_outputs(patch_warp, extra_datasets, inp)
+    differ = [k for k, v in got.items()
+              if not (v.dtype == stored[k].dtype and v.shape ==
+                      stored[k].shape and np.array_equal(v, stored[k]))]
+    if differ or len(got) != len(stored.files) - len(inp):
+        raise AssertionError(f'extra_data: {len(differ)} of {len(got)} '
+                             f'outputs differ from the fixture: {differ}')
+
+    host = extra_host_ms(patch_warp, extra_datasets)
+
+    rng = np.random.RandomState(5)
+    b, s = BATCH, EXTRA_MASK_SIZE
+    depth = torch.from_numpy(rng.uniform(-1, 0.5, (b, s, s, 1)).astype(
+        np.float32))
+    joints = torch.from_numpy(rng.uniform(-0.6, 0.6, (b, 21, 3)).astype(
+        np.float32))
+    pcl = torch.from_numpy(rng.uniform(-0.6, 0.6, (b, EXTRA_POINTS, 3))
+                           .astype(np.float32))
+    draws = occlusion.mask_image_draws(
+        b, 21, 6, torch.Generator().manual_seed(6), 'cpu')
+    want_mask = occlusion.mask_image_from_draws(depth, joints, *draws)
+    got_mask = occlusion.mask_image_from_draws(
+        depth.to(dev), joints.to(dev), *[d.to(dev) for d in draws]).cpu()
+    want_vis = occlusion.joint_visibility(pcl, joints, EXTRA_KERNEL)
+    got_vis = occlusion.joint_visibility(pcl.to(dev), joints.to(dev),
+                                         EXTRA_KERNEL).cpu()
+    mask_differ = int((got_mask != want_mask).sum())
+    vis_differ = int((got_vis != want_vis).sum())
+    if mask_differ or vis_differ or got_mask.device.type != 'cpu':
+        raise AssertionError(f'extra_data: the card differs from the CPU on '
+                             f'{mask_differ} mask pixels and {vis_differ} '
+                             f'visibilities')
+    gen = torch.Generator(device=dev).manual_seed(7)
+    d_dev, j_dev, p_dev = depth.to(dev), joints.to(dev), pcl.to(dev)
+    mask_ms = cuda_ms(lambda: occlusion.mask_image(d_dev, j_dev, gen), 20)
+    vis_ms = cuda_ms(lambda: occlusion.joint_visibility(p_dev, j_dev,
+                                                        EXTRA_KERNEL), 20)
+    launched = counts(kernels)
+    if any(launched.values()):
+        raise AssertionError(f'extra_data launched kernels: {launched}')
+    log('extra_data', fixture_outputs=len(got), differ=len(differ),
+        host_ms_a_call=json.dumps(host),
+        masked_share=round(float((want_mask == 1).float().mean()), 4),
+        visible_share=round(float(want_vis.float().mean()), 4),
+        mask_pixels_differ=mask_differ, visibility_differ=vis_differ,
+        mask_image_ms=round(mask_ms, 4), joint_visibility_ms=round(vis_ms, 4),
+        batch=b, crop=s, points=EXTRA_POINTS,
+        host_sizes=json.dumps({'freihand': EXTRA_FREIHAND, 'rhd': EXTRA_RHD,
+                               'patch': EXTRA_PATCH, 'heatmap': EXTRA_HEATMAP,
+                               'gaussian_batch': BATCH}),
+        launches=json.dumps(launched),
+        seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2516,6 +2909,8 @@ def main():
     check_feature_types(dev, kernels, card)
     check_mano(dev, card)
     check_desa_dense_train(dev, kernels, card)
+    check_optional_models(dev, kernels, card)
+    check_extra_data(dev, kernels, card)
 
     replaces = {'pixel_sampler': 'pixel_sampler_pallas.py:212',
                 'desa_dense': 'desa_dense_pallas.py:257',

@@ -1,7 +1,8 @@
 """numpy versions of the cv2 calls of the host preprocessing, with the
 roundings of cv2 5.0 (OpenCV's resize, warpAffine, warpPerspective,
-invert, getRotationMatrix2D and Rodrigues), worked out against cv2 on the
-same inputs, so that a crop or a warp holds cv2's pixels:
+invert, getRotationMatrix2D, Rodrigues, getAffineTransform, flip and
+copyMakeBorder), worked out against cv2 on the same inputs, so that a
+crop or a warp holds cv2's pixels:
 
   * resize(src, (w, h)) is cv2.resize(..., interpolation=INTER_NEAREST):
     source index min(floor(x * (1 / fx)), w_src - 1), fx = w / w_src, in
@@ -19,6 +20,13 @@ same inputs, so that a crop or a warp holds cv2's pixels:
     W as above, X / W and Y / W in float32, rounded half to even.
   * get_rotation_matrix_2d and rodrigues are cv2.getRotationMatrix2D and
     cv2.Rodrigues, in the same order of double operations.
+  * get_affine_transform(src, dst) is cv2.getAffineTransform: the 6x6
+    system solved in double by cv::solve's LU (partial pivoting, the
+    back substitution dividing by the pivot), bit for bit.
+  * flip(img, 1) and copy_make_border(img, top, bottom, left, right,
+    value) are cv2.flip about the vertical axis and cv2.copyMakeBorder
+    with BORDER_CONSTANT: value[c] fills channel c, and a 2-D image
+    takes value[0].
 
 Pixels that map outside the source take the border value. The source
 may have channels ([H, W, C]); a 2-D source stays 2-D.
@@ -120,13 +128,19 @@ def invert_affine(M) -> np.ndarray:
 
 
 def warp_affine(src: np.ndarray, M, dsize: Tuple[int, int],
-                border_value: float = 0.0) -> np.ndarray:
-    """cv2.warpAffine(src, M, dsize, flags=cv2.INTER_NEAREST,
+                border_value: float = 0.0,
+                interpolation: str = 'nearest') -> np.ndarray:
+    """cv2.warpAffine(src, M, dsize, flags=cv2.INTER_NEAREST or
+    cv2.INTER_LINEAR (interpolation 'nearest' or 'linear'),
     borderMode=cv2.BORDER_CONSTANT, borderValue=border_value)."""
     w, h = int(dsize[0]), int(dsize[1])
     m = invert_affine(M).astype(np.float32).reshape(6)
     sx = _source_coordinate(m[0], m[1], m[2], w, h)
     sy = _source_coordinate(m[3], m[4], m[5], w, h)
+    if interpolation == 'linear':
+        return _warp_linear(src, sx, sy, border_value)
+    if interpolation != 'nearest':
+        raise ValueError(f'interpolation {interpolation!r}')
     return _gather(src, _round(sx), _round(sy), border_value)
 
 
@@ -196,3 +210,103 @@ def rodrigues(rvec) -> np.ndarray:
     eye = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0]
     return np.array([c * e + c1 * a + s * b
                      for e, a, b in zip(eye, rrt, r_x)]).reshape(3, 3)
+
+
+def _lerp(a, p0, p1) -> np.ndarray:
+    """fma(a, p1 - p0, p0) in float32."""
+    return _fma32(a, (p1 - p0).astype(np.float32), p0)
+
+
+def _warp_linear(src, sx, sy, border_value):
+    """INTER_LINEAR taps and lerp of src at float32 coordinates."""
+    sh, sw = src.shape[:2]
+    # far outside, every tap is border; clamp before the int conversion
+    sx = np.clip(sx, -2.0 ** 30, 2.0 ** 30)
+    sy = np.clip(sy, -2.0 ** 30, 2.0 ** 30)
+    fx, fy = np.floor(sx), np.floor(sy)
+    a = (sx - fx).astype(np.float32)
+    b = (sy - fy).astype(np.float32)
+    x0, y0 = fx.astype(np.int64), fy.astype(np.int64)
+    if src.ndim == 3:
+        a, b = a[..., None], b[..., None]
+        border = np.zeros(src.shape[2], np.float32)
+        border[0] = border_value
+    else:
+        border = np.float32(border_value)
+
+    def tap(yy, xx):
+        inside = (xx >= 0) & (xx < sw) & (yy >= 0) & (yy < sh)
+        v = src[np.clip(yy, 0, sh - 1), np.clip(xx, 0, sw - 1)]
+        if src.ndim == 3:
+            inside = inside[..., None]
+        return np.where(inside, v.astype(np.float32), border)
+
+    v0 = _lerp(a, tap(y0, x0), tap(y0, x0 + 1))
+    v1 = _lerp(a, tap(y0 + 1, x0), tap(y0 + 1, x0 + 1))
+    v = _lerp(b, v0, v1)
+    if np.issubdtype(src.dtype, np.integer):
+        info = np.iinfo(src.dtype)
+        return np.clip(np.rint(v), info.min, info.max).astype(src.dtype)
+    return v.astype(src.dtype)
+
+
+def get_affine_transform(src, dst) -> np.ndarray:
+    """cv2.getAffineTransform(src, dst) for three float32 points each:
+    the 2x3 double matrix, from cv::solve's LU in its order of double
+    operations."""
+    src = np.asarray(src, np.float32).astype(np.float64).reshape(3, 2)
+    dst = np.asarray(dst, np.float32).astype(np.float64).reshape(3, 2)
+    a = [[0.0] * 6 for _ in range(6)]
+    b = [0.0] * 6
+    for i in range(3):
+        x, y = float(src[i, 0]), float(src[i, 1])
+        a[2 * i][0:3] = [x, y, 1.0]
+        a[2 * i + 1][3:6] = [x, y, 1.0]
+        b[2 * i], b[2 * i + 1] = float(dst[i, 0]), float(dst[i, 1])
+    m = 6
+    for i in range(m):
+        k = max(range(i, m), key=lambda j: (abs(a[j][i]), -j))
+        if abs(a[k][i]) < np.finfo(np.float64).eps * 100:
+            return np.zeros((2, 3))       # singular: cv::solve gives 0
+        if k != i:
+            a[i], a[k] = a[k], a[i]
+            b[i], b[k] = b[k], b[i]
+        d = -1.0 / a[i][i]
+        for j in range(i + 1, m):
+            alpha = a[j][i] * d
+            for c in range(i + 1, m):
+                a[j][c] += alpha * a[i][c]
+            b[j] += alpha * b[i]
+    for i in range(m - 1, -1, -1):
+        s = b[i]
+        for c in range(i + 1, m):
+            s -= a[i][c] * b[c]
+        b[i] = s / a[i][i]
+    return np.array(b).reshape(2, 3)
+
+
+def flip(img: np.ndarray, flip_code: int = 1) -> np.ndarray:
+    """cv2.flip(img, 1): mirrored about the vertical axis, a new array."""
+    if flip_code != 1:
+        raise NotImplementedError('only flip_code 1 (left-right) is used')
+    return np.ascontiguousarray(img[:, ::-1])
+
+
+def copy_make_border(img: np.ndarray, top: int, bottom: int, left: int,
+                     right: int, value: Sequence[float]) -> np.ndarray:
+    """cv2.copyMakeBorder(img, top, bottom, left, right,
+    cv2.BORDER_CONSTANT, value=list(value)): channel c of the border is
+    value[c] saturated to img's dtype; a 2-D image takes value[0]."""
+    value = list(value) + [0.0] * 4
+    h, w = img.shape[:2]
+    out = np.empty((h + top + bottom, w + left + right) + img.shape[2:],
+                   img.dtype)
+    fill = np.asarray(value[:img.shape[2] if img.ndim == 3 else 1],
+                      np.float64)
+    if np.issubdtype(img.dtype, np.integer):
+        info = np.iinfo(img.dtype)
+        fill = np.clip(np.rint(fill), info.min, info.max)
+    out[...] = fill.astype(img.dtype) if img.ndim == 3 else \
+        fill[0].astype(img.dtype)
+    out[top:top + h, left:left + w] = img
+    return out

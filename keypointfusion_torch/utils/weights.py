@@ -28,6 +28,14 @@ shape gate (keypointfusion_tpu/utils/torch_convert.py:merge_partial).
 
 `jax_mano_head_to_state_dict` and `mano_head_state_dict_to_jax` carry the
 MANO regression head's Dense layers both ways.
+
+The optional families carry one way each, from their JAX variables:
+`jax_posenet_to_state_dict`, `jax_cbam_to_state_dict`,
+`jax_centernet_to_state_dict`, `jax_rgbd_resnet_unet_to_state_dict`
+(with `jax_rgbd_fusion_to_state_dict`, `jax_acfusion_to_state_dict` and
+`jax_fsp_to_state_dict` for the fusion layers alone),
+`jax_detr_decoder_to_state_dict` and
+`jax_spatial_aggregate_tr_to_state_dict`.
 """
 
 from __future__ import annotations
@@ -110,6 +118,7 @@ def _resnet(sd: StateDict, pre: str, p: dict, s: dict, depth: int) -> None:
 
 
 def _residual(sd: StateDict, pre: str, p: dict, s: dict) -> None:
+    """The port's Residual (models/unet.py) under `pre`."""
     for c in (1, 2, 3):
         _bn(sd, f'{pre}.bn{c}', p[f'bn{c}'], s[f'bn{c}'])
         _conv2d(sd, f'{pre}.conv{c}.conv', p[f'conv{c}'])
@@ -352,3 +361,161 @@ def mano_head_state_dict_to_jax(sd: StateDict) -> dict:
         else:
             layer['bias'] = v.copy()
     return params
+
+
+# ------------------------------------------------- the optional families --
+
+def _conv_bn_relu(sd: StateDict, pre: str, p: dict, s: dict) -> None:
+    _conv2d(sd, f'{pre}.conv', p['conv'])
+    if 'bn' in p:
+        _bn(sd, f'{pre}.bn', p['bn'], s['bn'])
+
+
+def _hourglass(sd: StateDict, pre: str, p: dict, s: dict) -> None:
+    for name in ('up1', 'low1', 'low3'):
+        _residual(sd, f'{pre}.{name}', p[name], s[name])
+    if 'up1' in p['low2']:
+        _hourglass(sd, f'{pre}.low2', p['low2'], s['low2'])
+    else:
+        _residual(sd, f'{pre}.low2', p['low2'], s['low2'])
+
+
+def jax_posenet_to_state_dict(variables: dict) -> StateDict:
+    """A JAX PoseNet's variables {'params', 'batch_stats'} (numpy leaves)
+    -> the port's models/legacy.py:PoseNet state_dict."""
+    p, s = variables['params'], variables['batch_stats']
+    sd: StateDict = {}
+    _conv_bn_relu(sd, 'pre_conv', p['pre_conv'], s['pre_conv'])
+    for name in ('pre_res1', 'pre_res2', 'pre_res3'):
+        _residual(sd, name, p[name], s[name])
+    i = 0
+    while f'hg_{i}' in p:
+        _hourglass(sd, f'hg_{i}', p[f'hg_{i}'], s[f'hg_{i}'])
+        _residual(sd, f'feat_res_{i}', p[f'feat_res_{i}'],
+                  s[f'feat_res_{i}'])
+        _conv_bn_relu(sd, f'feat_conv_{i}', p[f'feat_conv_{i}'],
+                      s[f'feat_conv_{i}'])
+        for name in ('out1', 'out2', 'out3', 'merge_preds', 'merge_feats'):
+            if f'{name}_{i}' in p:
+                _conv2d(sd, f'{name}_{i}', p[f'{name}_{i}'])
+        i += 1
+    return sd
+
+
+def jax_cbam_to_state_dict(variables: dict) -> StateDict:
+    """A JAX CBAM's variables -> the port's models/legacy.py:CBAM
+    state_dict (channel_gate.fc1/fc2, spatial_gate.spatial_conv/_bn)."""
+    p = variables['params']
+    sd: StateDict = {}
+    for name in ('fc1', 'fc2'):
+        _dense(sd, f'channel_gate.{name}', p['channel_gate'][name])
+    if 'spatial_gate' in p:
+        g, gs = p['spatial_gate'], variables['batch_stats']['spatial_gate']
+        _conv2d(sd, 'spatial_gate.spatial_conv', g['spatial_conv'])
+        _bn(sd, 'spatial_gate.spatial_bn', g['spatial_bn'], gs['spatial_bn'])
+    return sd
+
+
+def jax_centernet_to_state_dict(variables: dict,
+                                depth: int = 18) -> StateDict:
+    """A JAX CenterNetRegressor's variables -> the port's
+    models/legacy.py:CenterNetRegressor state_dict (the ResNet under
+    `backbone.` with torchvision's names, `fc`)."""
+    p, s = variables['params'], variables['batch_stats']
+    sd: StateDict = {}
+    _resnet(sd, 'backbone.', p['backbone'], s['backbone'], depth)
+    _dense(sd, 'fc', p['fc'])
+    return sd
+
+
+def jax_rgbd_fusion_to_state_dict(params: dict) -> StateDict:
+    """A JAX RGBDFusion's {'params'} -> the port's RGBDFusion
+    state_dict."""
+    sd: StateDict = {}
+    for name in ('gate_rgb', 'gate_depth'):
+        _conv2d(sd, name, params[name])
+    return sd
+
+
+def jax_acfusion_to_state_dict(params: dict) -> StateDict:
+    """A JAX ACFusion's {'params'} -> the port's ACFusion state_dict."""
+    sd: StateDict = {}
+    for name in ('cam_rgb', 'cam_depth'):
+        _conv2d(sd, name, params[name])
+    return sd
+
+
+def jax_fsp_to_state_dict(params: dict) -> StateDict:
+    """A JAX FSP's {'params'} -> the port's FSP state_dict."""
+    sd: StateDict = {}
+    for name in ('fc1', 'fc2'):
+        _dense(sd, f'filter.{name}', params['filter'][name])
+    return sd
+
+
+def _prefixed(sd: StateDict, pre: str, part: StateDict) -> None:
+    sd.update({f'{pre}{k}': v for k, v in part.items()})
+
+
+def jax_rgbd_resnet_unet_to_state_dict(variables: dict,
+                                       depth: int = 18) -> StateDict:
+    """A JAX RGBDResNetUNet's variables -> the port's
+    models/rgbd_fusion.py:RGBDResNetUNet state_dict."""
+    p, s = variables['params'], variables['batch_stats']
+    bp, bs = p['backbone'], s['backbone']
+    sd: StateDict = {}
+    for tag in ('', 'depth_'):
+        _conv2d(sd, f'backbone.{tag}conv1', bp[f'{tag}conv1'])
+        _bn(sd, f'backbone.{tag}bn1', bp[f'{tag}bn1'], bs[f'{tag}bn1'])
+    for stage, nblocks in enumerate(STAGES[depth][1]):
+        for i in range(nblocks):
+            jn, tn = f'layer{stage + 1}_{i}', f'backbone.layer{stage + 1}.{i}'
+            for name, leaf in bp[jn].items():
+                if name.startswith(('conv', 'depth_conv', 'downsample_conv')):
+                    _conv2d(sd, f'{tn}.{name}', leaf)
+                else:
+                    _bn(sd, f'{tn}.{name}', leaf, bs[jn][name])
+        _prefixed(sd, f'backbone.rgbd_fusion_{stage}.',
+                  jax_rgbd_fusion_to_state_dict(bp[f'rgbd_fusion_{stage}']))
+    for name, _ in UNET_RESIDUALS:
+        _residual(sd, name, p[name], s[name])
+    i = 0
+    while f'final_{i}' in p:
+        _conv2d(sd, f'finals.{i}', p[f'final_{i}'])
+        i += 1
+    return sd
+
+
+def _image_cross_layers(sd: StateDict, p: dict, pos_name: str) -> None:
+    i = 0
+    while f'layer_{i}' in p:
+        lp, lt = p[f'layer_{i}'], f'layer_{i}'
+        sd[f'{pos_name}_{i}.weight'] = _t(p[f'{pos_name}_{i}']['embedding'])
+        a = lp['cross_attn']
+        names = ('query', 'key', 'value')
+        sd[f'{lt}.cross_attn.in_proj_weight'] = _t(np.concatenate(
+            [_head_kernel(a[n]['kernel']) for n in names]))
+        sd[f'{lt}.cross_attn.in_proj_bias'] = _t(np.concatenate(
+            [np.asarray(a[n]['bias']).reshape(-1) for n in names]))
+        _mha_out(sd, f'{lt}.cross_attn.out_proj', a['out'])
+        for name in ('norm2', 'norm3'):
+            _layernorm(sd, f'{lt}.{name}', lp[name])
+        for name in ('linear1', 'linear2'):
+            _dense(sd, f'{lt}.{name}', lp[name])
+        i += 1
+
+
+def jax_detr_decoder_to_state_dict(params: dict) -> StateDict:
+    """A JAX DetrDecoder's {'params'} -> the port's
+    models/transformer_extra.py:DetrDecoder state_dict."""
+    sd: StateDict = {}
+    _image_cross_layers(sd, params, 'query_pos')
+    return sd
+
+
+def jax_spatial_aggregate_tr_to_state_dict(params: dict) -> StateDict:
+    """A JAX SpatialAggregateTR's {'params'} -> the port's
+    SpatialAggregateTR state_dict."""
+    sd: StateDict = {}
+    _image_cross_layers(sd, params, 'key_pos')
+    return sd

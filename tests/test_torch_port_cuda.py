@@ -49,6 +49,12 @@ Tolerances:
     [-1.2, 1.2] everywhere, so slots fall on both sides of the mask.
   * The feature types' decode, MANO and DESA's dense train step hold
     chip_smoke.py's limits (TRAINER_MM_TOL, MANO_TOL, TRAIN_TOL).
+  * The optional model families (models/legacy.py, rgbd_fusion.py,
+    transformer_extra.py) at narrow widths, batch 2: the eval forward,
+    one train step's gradients and the statistics' change on the card
+    against the CPU within chip_smoke.py's OPTIONAL_TOL, no kernel
+    launched; occlusion's mask_image and joint_visibility equal on the
+    card and the CPU given the same draws.
 """
 
 import numpy as np
@@ -761,3 +767,93 @@ def test_dense_train_step_matches_gather_on_card(cuda_device):
     out = compare_steps([(cuda_device, False), (cuda_device, True)],
                         'float32', 'KPFusion-resnet-18', 2)
     assert out['update_rel'] <= out['tol']['update_rel']
+
+
+OPTIONAL_CARD_SHAPES = {
+    'posenet': [(2, 64, 64, 1)],
+    'centernet': [(2, 64, 64, 1)],
+    'cbam': [(2, 12, 10, 64)],
+    'rgbd_resnet_unet': [(2, 64, 64, 3), (2, 64, 64, 1)],
+    'detr_decoder': [(2, 21, 128), (2, 8, 8, 128)],
+    'spatial_aggregate_tr': [(2, 8, 8, 128), (2, 21, 128)],
+}
+
+
+def optional_card_model(name):
+    """The family `name` at the CPU tests' narrow widths (DETR's layers
+    at dropout 0)."""
+    from keypointfusion_torch.models import legacy, rgbd_fusion
+    from keypointfusion_torch.models import transformer_extra as tx
+    return {
+        'posenet': lambda: legacy.PoseNet(nstack=2, inp_dim=32),
+        'centernet': legacy.CenterNetRegressor,
+        'cbam': lambda: legacy.CBAM(64),
+        'rgbd_resnet_unet': rgbd_fusion.RGBDResNetUNet,
+        'detr_decoder': lambda: tx.DetrDecoder(layers=2, dropout=0.0),
+        'spatial_aggregate_tr': lambda: tx.SpatialAggregateTR(
+            layers=2, dropout=0.0),
+    }[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', list(OPTIONAL_CARD_SHAPES))
+def test_optional_family_on_card_matches_cpu(cuda_device, name):
+    """chip_smoke.py's family_pass on the card against the CPU (eval
+    outputs, gradients, the statistics' change) within OPTIONAL_TOL, in
+    float64 on both sides (at batch 2 on 64x64 frames the last stages'
+    train-mode BatchNorms normalize 8 values a channel, which turns
+    float32 rounding into gradient noise; chip_smoke.py's phase holds
+    float32 at full size), and no kernel launched on the card."""
+    import copy
+    from chip_smoke import family_errors, family_inputs, family_outputs, \
+        family_pass
+    from keypointfusion_torch.models.layers import set_compute_dtype
+    torch.manual_seed(0)
+    model = set_compute_dtype(optional_card_model(name).double(),
+                              torch.float64)
+    xs = [x.double() for x in family_inputs(OPTIONAL_CARD_SHAPES[name], 1,
+                                            'cpu')]
+    rng = np.random.RandomState(2)
+    with torch.no_grad():
+        cots = [torch.from_numpy(rng.randn(*o.shape))
+                for o in family_outputs(model.eval()(*xs))]
+    want = family_pass(copy.deepcopy(model), xs, cots)
+    kernels = (k2.KERNEL, k1.KERNEL, k2.SERVING_KERNEL, k1.SERVING_KERNEL,
+               k3.KERNEL)
+    before = [k.launches for k in kernels]
+    got = family_pass(copy.deepcopy(model).to(cuda_device),
+                      [x.to(cuda_device) for x in xs],
+                      [c.to(cuda_device) for c in cots])
+    assert [k.launches for k in kernels] == before
+    errors = family_errors(got, want)
+    assert max(errors.values()) <= 1.0, errors
+
+
+@pytest.mark.cuda
+def test_occlusion_on_card_matches_cpu(cuda_device):
+    """mask_image (the same draws, made on the CPU) and joint_visibility
+    on the card equal to the CPU; a card generator's draws stay on the
+    card."""
+    from keypointfusion_torch.data import occlusion
+    rng = np.random.RandomState(3)
+    depth = torch.from_numpy(rng.uniform(-1, 0.5, (4, 32, 32, 1)).astype(
+        np.float32))
+    joints = torch.from_numpy(rng.uniform(-0.6, 0.6, (4, 21, 3)).astype(
+        np.float32))
+    pcl = torch.from_numpy(rng.uniform(-0.6, 0.6, (4, 512, 3)).astype(
+        np.float32))
+    draws = occlusion.mask_image_draws(
+        4, 21, 6, torch.Generator().manual_seed(0), 'cpu')
+    want = occlusion.mask_image_from_draws(depth, joints, *draws)
+    got = occlusion.mask_image_from_draws(
+        depth.to(cuda_device), joints.to(cuda_device),
+        *[d.to(cuda_device) for d in draws])
+    assert torch.equal(got.cpu(), want) and bool((want == 1).any())
+    for kernel in (0.1, 0.2):
+        assert torch.equal(occlusion.joint_visibility(
+            pcl.to(cuda_device), joints.to(cuda_device), kernel).cpu(),
+            occlusion.joint_visibility(pcl, joints, kernel))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    out = occlusion.mask_image(depth.to(cuda_device),
+                               joints.to(cuda_device), gen)
+    assert out.device.type == 'cuda' and out.shape == depth.shape

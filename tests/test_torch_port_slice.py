@@ -255,7 +255,13 @@ def test_port_imports_no_jax():
             'keypointfusion_torch.mano.manolayer',
             'keypointfusion_torch.mano.mano_head',
             'keypointfusion_torch.utils.rotations',
-            'keypointfusion_torch.utils.graph'} <= set(names)
+            'keypointfusion_torch.utils.graph',
+            'keypointfusion_torch.models.legacy',
+            'keypointfusion_torch.models.rgbd_fusion',
+            'keypointfusion_torch.models.transformer_extra',
+            'keypointfusion_torch.data.patch_warp',
+            'keypointfusion_torch.data.occlusion',
+            'keypointfusion_torch.data.extra_datasets'} <= set(names)
     code = ('import sys\n'
             f'for name in {names!r}:\n'
             '    __import__(name)\n'

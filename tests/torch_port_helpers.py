@@ -136,6 +136,63 @@ def leaf_errors(got, want):
     return out
 
 
+def _leaves(tree: dict, pre: tuple = ()):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, pre + (k,))
+        else:
+            yield pre + (k,), np.asarray(v)
+
+
+def _fill(tree: dict, values: dict, pre: tuple = ()) -> dict:
+    return {k: (_fill(v, values, pre + (k,)) if isinstance(v, dict)
+                else values[pre + (k,)]) for k, v in tree.items()}
+
+
+def carry_inverse(carry, template: dict):
+    """The inverse of `carry` (one of utils/weights.py's
+    jax_*_to_state_dict functions, with its other arguments bound) on
+    trees shaped like `template`: a function of a state_dict (the port's
+    tensors, or their gradients) that returns the JAX tree, numpy float32
+    leaves. It carries `template`'s shape twice, once with each leaf
+    holding its number and once with each element holding its position
+    in its leaf (both exact in float32), and so learns where every
+    element went; a JAX element that reaches no tensor raises. Every
+    carry only moves, transposes and packs the JAX leaves, so this tells
+    where each value went; the tests build a port module's JAX variables
+    with it, without a JAX init."""
+    paths = [(path, leaf.shape) for path, leaf in _leaves(template)]
+    offsets = np.cumsum([0] + [int(np.prod(s)) for _, s in paths])
+    ids = {path: np.full(shape, i, np.float32)
+           for i, (path, shape) in enumerate(paths)}
+    pos = {path: np.arange(int(np.prod(shape)), dtype=np.float32
+                           ).reshape(shape) for path, shape in paths}
+    by_id, by_pos = carry(_fill(template, ids)), carry(_fill(template, pos))
+    keys = [k for k, t in by_id.items() if t.is_floating_point()]
+    # for every JAX element (leaves in `paths` order, flattened), its
+    # index in the state_dict's floating tensors flattened in `keys` order
+    source = np.full(offsets[-1], -1, np.int64)
+    start = 0
+    for key in keys:
+        leaf = by_id[key].numpy().reshape(-1).astype(np.int64)
+        where = by_pos[key].numpy().reshape(-1).astype(np.int64)
+        source[offsets[leaf] + where] = start + np.arange(leaf.size)
+        start += leaf.size
+    for i, (path, _) in enumerate(paths):
+        if (source[offsets[i]:offsets[i + 1]] < 0).any():
+            raise ValueError(f'{"/".join(path)}: not every element is '
+                             f'carried')
+
+    def inverse(sd: dict) -> dict:
+        flat = np.concatenate([sd[k].detach().float().cpu().numpy()
+                               .reshape(-1) for k in keys])
+        return _fill(template, {
+            path: flat[source[offsets[i]:offsets[i + 1]]].reshape(shape)
+            for i, (path, shape) in enumerate(paths)})
+    return inverse
+
+
 def _two_pass_batch_norm(original):
     def batch_norm(input, running_mean, running_var, weight=None, bias=None,
                    training=False, momentum=0.1, eps=1e-5):
