@@ -37,8 +37,14 @@ against CPU in eval and one train step, then ms and peak memory at batch
 64, no kernel launched); and the off-path data modules
 (check_extra_data: patch warps, crops, RHD helpers and heatmaps against
 the JAX package's outputs in a fixture, bit for bit; occlusion masks and
-visibility on the card against the CPU). Weights are random, drawn from
-a seed.
+visibility on the card against the CPU); the multi-device paths
+(check_parallel: two engine replicas on the card against one engine,
+each request launching K2 twice and K1 four times, counters set to 0
+just before it; two gloo ranks on the card under both BatchNorm
+policies against the world-1 step; an NCCL world of one); and the
+native eval core (check_native: the JAX core's stored samples, 0 values
+differing; ms a sample and loader samples/s by both routes). Weights
+are random, drawn from a seed.
 Every phase prints one line; then a JSON line describing each kernel, the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
@@ -243,6 +249,16 @@ EXTRA_HOST_ITERS = 20
 EXTRA_MASK_SIZE = 128
 EXTRA_POINTS = 1024
 EXTRA_KERNEL = 0.17   # ~12 of the cloud's points a joint: some visible
+# the [parallel] phase: engine replicas on the one card, gloo ranks on it
+PARALLEL_REPLICAS = 2
+PARALLEL_RANKS = 2
+PARALLEL_STEP_BATCH = 2      # the ranks' step: one row a rank, 256 points
+# the NCCL world-1 global-batch BatchNorm against torch's own, of scale
+PARALLEL_BN_TOL = 1e-5
+PARALLEL_BN_ROWS = 4096
+# the [native] phase: the test split's samples timed by each route
+NATIVE_TEST = 2 * BATCH
+NATIVE_THREADS = (1, 8)
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
            'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
 
@@ -1780,8 +1796,8 @@ class StepClock:
         from keypointfusion_torch.training import trainer as module
         self.module, self.original = module, module.make_train_step
 
-        def make(cfg):
-            step = self.original(cfg)
+        def make(*args):
+            step = self.original(*args)
 
             def timed(*args):
                 self.starts.append(time.perf_counter())
@@ -2851,6 +2867,329 @@ def check_extra_data(dev, kernels, card):
         launches=json.dumps(launched),
         seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
 
+def replica_errors(got, want, ref32, dtype):
+    """The replicas' answer against one engine's: float32 within
+    SERVING_TOL; bfloat16 within the bfloat16 engine's budget of serve()
+    (twice the one engine's distance from the float32 engine `ref32`, plus
+    a bfloat16 unit), M equal. Returns {key: (error, limit)}."""
+    import torch
+    out = {}
+    for key, unit in (('joint_xyz_mm', 125.0), ('joint_uvd', 1.0),
+                      ('M', 0.0)):
+        err = float(np.abs(got[key] - want[key]).max())
+        if dtype == torch.float32 or key == 'M':
+            limit = SERVING_TOL[key]
+        else:
+            limit = 2 * float(np.abs(want[key] - ref32[key]).max()) \
+                + 2 ** -8 * unit
+        out[key] = (err, limit)
+    return out
+
+
+def parallel_references(dev, cfg, batch, weights):
+    """The world-1 steps the ranks are held to, on the card, in float64
+    arithmetic: the whole batch's (global-batch statistics) and the mean
+    over its rows of each row's step (per-shard statistics: the mean
+    gradient applied to the start, SGD's first step, and the mean
+    statistics). Returns (start, {sync: state64 after}, the parameters'
+    names), float64 CPU dicts."""
+    import torch
+    from keypointfusion_torch.models.layers import set_compute_dtype
+    from keypointfusion_torch.training.train_step import (
+        batch_to_device, create_train_state, make_train_step,
+    )
+
+    def step(b):
+        b = batch_to_device(b, dev)
+        state = create_train_state(cfg, b, device=dev, seed=0, dropout=0.0)
+        state.model.load_state_dict(weights)
+        set_compute_dtype(state.model.double(), torch.float64)
+        # a float64 tensor on the CPU is its own state64: copy it
+        start = {k: v.clone() for k, v in state64(state.model).items()}
+        state, _ = make_train_step(cfg)(state, b, None, 0)
+        return start, state64(state.model), step_grads(state.model)
+
+    start, whole, _ = step(batch)
+    rows = [step({k: v[i:i + 1] for k, v in batch.items()})
+            for i in range(len(batch['rgb']))]
+    shard = {k: sum(r[1][k] for r in rows) / len(rows) for k in whole}
+    for k in rows[0][2]:
+        shard[k] = start[k] - cfg.lr * sum(r[2][k] for r in rows) / len(rows)
+    return start, {True: whole, False: shard}, list(rows[0][2])
+
+
+def check_parallel(dev, kernels, card):
+    """The multi-device paths on the one card. It tells nothing of speed
+    across cards: both replicas and both ranks share this card.
+    1. Engine replicas: StreamingEngine(devices=[card, card]) at batch 64,
+       full frames, in float32 and bfloat16, against the one-replica
+       engine (the same weights and point draws) within replica_errors'
+       limits; a request's launches, counters set to 0 just before it
+       and read just after: K2 twice and K1 four times (each replica once
+       and twice); ms a request over REQUESTS requests through
+       process_stream, one and two replicas.
+    2. Two gloo ranks on the card (parallel/dryrun.py:run_ranks and
+       train_ranks): one SGD step of the model at batch 2 (a row a rank,
+       256 points, dropout 0) under each BatchNorm policy, against the
+       world-1 references (parallel_references) within
+       TRAIN_TOL['float32'] and the controls outside it
+       (train_step_failures); rank 1 holds rank 0's state bit for bit.
+       Both sides compute in float64 (the model's float32 parts aside):
+       in float32 the rows' convolutions at batch 1 round otherwise than
+       at batch 2, which moved a point across a ball's edge in block 2
+       (the update 0.297 from the reference's, block 2's DESA fusion
+       statistics 4.9x their limit, on an H100 at 700 W).
+    3. An NCCL process group of one rank: the train step under it
+       against the plain step within TRAIN_TOL['float32'], and
+       models/norm.py:global_batch_norm (its all-reduces on NCCL) against
+       torch's train-mode batch_norm on PARALLEL_BN_ROWS x 128 within
+       PARALLEL_BN_TOL of scale, outputs, input gradients and running
+       statistics."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.data.synthetic import (
+        synthetic_batch, synthetic_frames,
+    )
+    from keypointfusion_torch.models.norm import (
+        TorchBatchNorm, global_batch_norm,
+    )
+    from keypointfusion_torch.parallel.dryrun import run_ranks, train_ranks
+    from keypointfusion_torch.parallel.mesh import init_process_group
+    from keypointfusion_torch.serving import StreamingEngine
+    from keypointfusion_torch.training.train_step import (
+        batch_to_device, create_train_state, make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    # 1. engine replicas
+    rng = np.random.RandomState(11)
+    requests = [synthetic_frames(BATCH, rng=rng) for _ in range(REQUESTS + 1)]
+    keys = ('depth', 'rgb', 'centers', 'cube', 'cam')
+    serving, ref32 = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        engines = [StreamingEngine(Config(), batch_size=BATCH,
+                                   img_hw=(480, 640), dtype=dtype, seed=0,
+                                   device=dev, devices=[dev] * n)
+                   for n in (1, PARALLEL_REPLICAS)]
+        answers = []
+        for eng in engines:
+            answers.append(eng._unpack(eng.submit(
+                *[requests[0][k] for k in keys]).cpu().numpy()))
+        if dtype == torch.float32:
+            ref32 = answers[0]
+        errors = replica_errors(answers[1], answers[0], ref32, dtype)
+        if any(not e <= lim for e, lim in errors.values()):
+            raise AssertionError(f'parallel {name}: {PARALLEL_REPLICAS} '
+                                 f'replicas against one engine: {errors}')
+        torch.cuda.synchronize()
+        reset(kernels)
+        engines[1].submit(*[requests[1][k] for k in keys])
+        torch.cuda.synchronize()
+        launches = counts(kernels)
+        suffix = '' if dtype == torch.float32 else '_serving'
+        want = dict.fromkeys(kernels, 0)
+        want['pixel_sampler' + suffix] = PARALLEL_REPLICAS
+        want['desa_dense' + suffix] = 2 * PARALLEL_REPLICAS
+        if launches != want:
+            raise AssertionError(f'parallel {name}: a request launched '
+                                 f'{launches}, expected {want}')
+        ms = {}
+        for n, eng in zip((1, PARALLEL_REPLICAS), engines):
+            list(eng.process_stream(iter(requests[:1])))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = list(eng.process_stream(iter(requests[1:])))
+            torch.cuda.synchronize()
+            ms[n] = round((time.perf_counter() - t) / REQUESTS * 1e3, 3)
+            if len(outs) != REQUESTS or not all(
+                    np.isfinite(v).all() for o in outs for v in o.values()):
+                raise AssertionError(f'parallel {name}: bad stream answers')
+        serving[name] = {'errors': {k: [float(f'{e:.3g}'), float(f'{l:.3g}')]
+                                    for k, (e, l) in errors.items()},
+                         'launches_per_request': launches,
+                         'ms_per_request': ms}
+        del engines
+
+    # 2. gloo ranks on the card
+    tol = TRAIN_TOL['float32']
+    cfg_fields = {'opt': 'sgd', 'lr': TRAIN_LR, 'point_num': 256}
+    batch = synthetic_batch(batch_size=PARALLEL_STEP_BATCH, point_num=256,
+                            seed=42)
+    weights = create_train_state(
+        Config(**cfg_fields), batch_to_device(batch, 'cpu'), device='cpu',
+        seed=0, dropout=0.0).model.state_dict()
+    start, refs, params = parallel_references(dev, Config(**cfg_fields),
+                                              batch, weights)
+    workdir = tempfile.mkdtemp(prefix='kpf_parallel_')
+    ranks = {}
+    try:
+        torch.save({'device': str(dev), 'weights': weights, 'grads': True,
+                    'batch': {k: torch.from_numpy(v)
+                              for k, v in batch.items()},
+                    'steps': [{'config': dict(cfg_fields, sync_batchnorm=s),
+                               'float64': True} for s in (True, False)]},
+                   os.path.join(workdir, 'in.pt'))
+        t = time.perf_counter()
+        run_ranks(PARALLEL_RANKS, train_ranks, workdir, timeout_s=600)
+        ranks_s = time.perf_counter() - t
+        out = torch.load(os.path.join(workdir, 'out_0.pt'),
+                         weights_only=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for sync, run in zip((True, False), out['steps']):
+        got = {k: v.double() for k, v in run['state'].items()
+               if v.is_floating_point()}
+        grads = {k: run['grads'][k].double() if k in run['grads']
+                 else torch.zeros_like(start[k]) for k in params}
+        failures, errors, controls = train_step_failures(
+            got, refs[sync], start, grads, TRAIN_LR, tol)
+        if failures:
+            raise AssertionError(
+                f'parallel gloo {"sync" if sync else "per-shard"}: '
+                f'{failures}; {errors}, controls {controls}')
+        ranks['sync' if sync else 'per_shard'] = {
+            'worst_param_over_tol': round(errors['param'][0], 5),
+            'worst_stat_over_tol': round(errors['stat'][0], 5),
+            'update_rel': float(f"{errors['update']:.3g}"),
+            'own_update_rel': float(f"{errors['own_update']:.3g}"),
+            'stat_change_rel': float(f"{errors['stat_change']:.3g}"),
+            'loss': run['metrics']['loss']}
+
+    # 3. NCCL, one rank
+    store_dir = tempfile.mkdtemp(prefix='kpf_nccl_')
+    try:
+        group = init_process_group(
+            'nccl', 0, 1, store=dist.FileStore(
+                os.path.join(store_dir, 'store'), 1))
+        try:
+            cfg = Config(**cfg_fields)
+            b = batch_to_device(batch, dev)
+            states = []
+            for g in (None, group):
+                state = create_train_state(cfg, b, device=dev, seed=0,
+                                           dropout=0.0)
+                state.model.load_state_dict(weights)
+                state, _ = make_train_step(cfg, g)(state, b, None, 0)
+                states.append(state.model)
+            failures, nccl_errors, _ = train_step_failures(
+                state64(states[1]), state64(states[0]), start,
+                step_grads(states[1]), TRAIN_LR, tol)
+            if failures:
+                raise AssertionError(f'parallel nccl step: {failures}; '
+                                     f'{nccl_errors}')
+            gen = torch.Generator(device=dev).manual_seed(3)
+            x = (torch.randn(PARALLEL_BN_ROWS, 128, device=dev,
+                             generator=gen) * 3 + 1).requires_grad_()
+            w = torch.randn(PARALLEL_BN_ROWS, 128, device=dev,
+                            generator=gen)
+            bn = TorchBatchNorm(128).to(dev).train()
+            bn_sync = copy.deepcopy(bn)
+            y = bn(x)
+            (gx,) = torch.autograd.grad((y * w).sum(), x)
+            y_sync = global_batch_norm(x, bn_sync, group)
+            (gx_sync,) = torch.autograd.grad((y_sync * w).sum(), x)
+            bn_err = {}
+            for key, a, ref in (
+                    ('out', y_sync, y), ('grad', gx_sync, gx),
+                    ('mean', bn_sync.running_mean, bn.running_mean),
+                    ('var', bn_sync.running_var, bn.running_var)):
+                a, ref = a.detach(), ref.detach()
+                bn_err[key] = float((a - ref).abs().max()
+                                    / ref.abs().max())
+            if any(not e <= PARALLEL_BN_TOL for e in bn_err.values()):
+                raise AssertionError(f'parallel nccl global_batch_norm: '
+                                     f'{bn_err}')
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+    log('parallel', replicas=PARALLEL_REPLICAS, batch=BATCH,
+        serving=json.dumps(serving), ranks=PARALLEL_RANKS,
+        rank_backend='gloo', rank_step_batch=PARALLEL_STEP_BATCH,
+        rank_step_dtype='float64',
+        rank_steps=json.dumps(ranks), ranks_seconds=round(ranks_s, 2),
+        nccl_world1_step=json.dumps({
+            'worst_param_over_tol': round(nccl_errors['param'][0], 5),
+            'update_rel': float(f"{nccl_errors['update']:.3g}")}),
+        nccl_global_batch_norm=json.dumps(
+            {k: float(f'{v:.3g}') for k, v in bn_err.items()}),
+        tol=json.dumps(tol), seconds=round(time.perf_counter() - t0, 2),
+        card=json.dumps(card))
+
+
+def check_native(dev, card):
+    """The native eval core (data/native.py, csrc/host/preprocess.cc) on
+    the card's host: its build; the fixture's test split through the
+    default (native) route against the JAX package's default route's
+    samples stored beside it (native_samples.npz), every value compared
+    (tolerance 0); then on a DexYCB tree of NATIVE_TEST test annotations
+    over the fixture's frames, by each route (native and numpy): the
+    eval __getitem__'s ms a sample on one thread, and BatchLoader's
+    samples/s at NATIVE_THREADS threads over the split (ctypes releases
+    the interpreter lock for the core's calls)."""
+    import os
+    import shutil
+    import tempfile
+    from keypointfusion_torch.data import native
+    from keypointfusion_torch.data.datasets import DexYCBDataset
+    from keypointfusion_torch.data.pipeline import BatchLoader
+
+    t0 = time.perf_counter()
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           DATA_FIXTURE)
+    native.CORE.load()
+    build_s = time.perf_counter() - t0
+    stored = np.load(os.path.join(fixture, 'native_samples.npz'))
+    ds = DexYCBDataset('s0', 'test', fixture, sample_num=1024, seed=7)
+    values = differ = 0
+    for i in sorted({int(key.split('_')[1]) for key in stored.files}):
+        for k, v in ds[i].items():
+            want = stored[f'test_{i}_{k}']
+            if v.shape != want.shape or v.dtype != want.dtype:
+                raise AssertionError(f'native: sample {i} {k} is '
+                                     f'{v.dtype}{v.shape}')
+            values += v.size
+            differ += int((v != want).sum())
+    if differ or values == 0:
+        raise AssertionError(f'native: {differ} of {values} values differ '
+                             f'from the JAX core\'s')
+    root = tempfile.mkdtemp(prefix='kpf_native_')
+    getitem_ms, loader = {}, {}
+    try:
+        write_dexycb_tree(root, fixture, 0, NATIVE_TEST)
+        for route, use_native in (('native', True), ('numpy', False),
+                                  ('native_again', True)):
+            ds = DexYCBDataset('s0', 'test', root, sample_num=1024)
+            ds.use_native = use_native
+            ds[0]
+            t = time.perf_counter()
+            for i in range(NATIVE_TEST):
+                ds[i]
+            getitem_ms[route] = round(
+                (time.perf_counter() - t) / NATIVE_TEST * 1e3, 3)
+            loader[route] = {}
+            for threads in NATIVE_THREADS:
+                batches = BatchLoader(ds, BATCH, num_workers=threads,
+                                      drop_last=False)
+                t = time.perf_counter()
+                n = sum(len(b['rgb']) for b in batches)
+                loader[route][threads] = round(
+                    n / (time.perf_counter() - t), 2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log('native', fixture_values=values, differ=differ,
+        build_s=round(build_s, 2), test_samples=NATIVE_TEST,
+        getitem_ms=json.dumps(getitem_ms),
+        loader_samples_per_s=json.dumps(loader), cpu_count=os.cpu_count(),
+        seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
 
 def main():
     import torch
@@ -2911,6 +3250,8 @@ def main():
     check_desa_dense_train(dev, kernels, card)
     check_optional_models(dev, kernels, card)
     check_extra_data(dev, kernels, card)
+    check_parallel(dev, kernels, card)
+    check_native(dev, card)
 
     replaces = {'pixel_sampler': 'pixel_sampler_pallas.py:212',
                 'desa_dense': 'desa_dense_pallas.py:257',

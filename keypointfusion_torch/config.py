@@ -6,9 +6,10 @@ loaders read, with the names and defaults of the JAX package's `Config`
 singleton. The port keeps its own copy so that it imports nothing from the
 JAX package. `flatten_opt` is left out: it only picks optax's moment
 layout (one raveled vector or one per leaf), and torch's optimizers keep
-their moments per tensor. So are `mesh_axis` and `sync_batchnorm`, the
-JAX package's multi-device knobs: the port runs on one card (ROADMAP.md
-§1 #18).
+their moments per tensor. So is `mesh_axis`, the name of the JAX mesh's
+batch axis: the port runs one process per card under torch.distributed
+(parallel/mesh.py), and a torch process group has no axis names.
+`sync_batchnorm` is kept, with the JAX default.
 """
 
 import dataclasses
@@ -112,6 +113,11 @@ class Config:
     # train steps per call of the trainer's step: G > 1 stacks G loader
     # batches and runs them through make_train_step_scan
     steps_per_dispatch: int = 1
+    # under a process group: True takes every BatchNorm's train statistics
+    # over the global batch (the JAX mesh step's GSPMD reductions); False
+    # over each rank's slice, the running statistics then averaged (the
+    # JAX per-shard step, the reference's DataParallel)
+    sync_batchnorm: bool = True
 
     @property
     def joint_num(self) -> int:

@@ -9,9 +9,12 @@ extrinsics' rotation by data/cv_ops.py:rodrigues; the rest is the JAX
 module's numpy, so a dataset built with the same seed draws the same
 augmentations and gives the same samples. Every dataset holds one
 random.Random and one np.random.RandomState, seeded alike and drawn in
-the JAX module's order. The eval path takes the numpy route: the JAX
-module's fused C++ eval core (keypointfusion_tpu/native), which it calls
-bit-identical to that route, has no counterpart yet.
+the JAX module's order. The eval samples take the JAX module's default
+route, its fused C++ eval core, here data/native.py: the depth crop,
+normalization and point cloud in two native passes, bit for bit with the
+JAX core (which is not bit for bit with the numpy route: 4.2e-7 in
+normalized units). `use_native = False` on a dataset takes the numpy
+route instead, the JAX route where its core is not built.
 
 Every sample is a dict of float32 numpy arrays (images NHWC):
   rgb [S,S,3], depth [S,S,1], pcl [N,3], xyz_gt [J,3], uvd_gt [J,3],
@@ -28,7 +31,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from keypointfusion_torch.data import cv_ops
+from keypointfusion_torch.data import cv_ops, native
 from keypointfusion_torch.data import preprocessing as pp
 from keypointfusion_torch.data.image_io import imread
 
@@ -65,11 +68,19 @@ def _read(path: str, anydepth: bool = False) -> np.ndarray:
 def build_rgbd_sample(depth, rgb, joint_xyz_mm, center_xyz, cam_para,
                       cube_size, train: bool, aug_para, py_rng, np_rng,
                       img_size=128, sample_num=1024, color_factor=0.0,
-                      clamp_pcl=False, flip=1.0) -> Dict[str, np.ndarray]:
+                      clamp_pcl=False, flip=1.0,
+                      use_native: bool = True) -> Dict[str, np.ndarray]:
     """The shared crop→augment→normalize→pcl pipeline every dataset runs
-    per sample (reference loader.py:1129-1204 and clones)."""
+    per sample (reference loader.py:1129-1204 and clones). An eval sample
+    (no augmentation, flip 1) takes the native core (data/native.py)
+    unless use_native is False, as the JAX module's does."""
     center_uvd = pp.joint_3d_to_img(center_xyz, cam_para, flip)
     gt3Dcrop = joint_xyz_mm - center_xyz
+
+    if not train and use_native and flip == 1.0:
+        return _build_eval_sample_native(
+            depth, rgb, gt3Dcrop, center_xyz, center_uvd, cam_para,
+            cube_size, img_size, sample_num, clamp_pcl, np_rng)
 
     depth_crop, trans = pp.crop_area_3d(
         depth, center_uvd, cube_size, (img_size, img_size), cam_para)
@@ -128,6 +139,45 @@ def build_rgbd_sample(depth, rgb, joint_xyz_mm, center_xyz, cam_para,
     }
 
 
+def _build_eval_sample_native(depth, rgb, gt3Dcrop, center_xyz, center_uvd,
+                              cam_para, cube_size, img_size, sample_num,
+                              clamp_pcl, np_rng) -> Dict[str, np.ndarray]:
+    """An eval sample through the native core (the JAX module's
+    _build_eval_sample_native): the depth crop and the point cloud
+    native, the colour crop and the labels in numpy."""
+    cam = np.asarray(cam_para, np.float32)
+    cube = np.asarray(cube_size, np.float32)
+    imgD, M = native.crop_normalize(depth.astype(np.float32),
+                                    np.asarray(center_uvd, np.float32),
+                                    cube, cam, img_size)
+    rgb_crop, _ = pp.crop_area_3d(rgb.astype(np.float32), center_uvd,
+                                  cube_size, (img_size, img_size), cam_para,
+                                  thresh_z=False)
+    com3d = pp.joint_img_to_3d(center_uvd, cam_para)
+    cur_label = gt3Dcrop / (cube[2] / 2.0)
+    joint_img = pp.transform_points_2d(
+        pp.joint_3d_to_img(cur_label * (cube[0] / 2.0) + com3d, cam_para),
+        M)
+    joint_img[:, :2] = joint_img[:, :2] / (img_size / 2) - 1
+    joint_img[:, 2] = (joint_img[:, 2] - com3d[2]) / (cube[0] / 2.0)
+
+    pcl = native.depth_to_pcl(imgD, M, cam, com3d.astype(np.float32), cube)
+    pcl_sample = pp.sample_pcl(pcl, sample_num, np_rng)
+    if clamp_pcl:
+        pcl_sample = np.clip(pcl_sample, -1, 1)
+    return {
+        'rgb': (rgb_crop / 255.0).astype(np.float32),
+        'depth': imgD.astype(np.float32)[..., None],
+        'pcl': pcl_sample.astype(np.float32),
+        'xyz_gt': cur_label.astype(np.float32),
+        'uvd_gt': joint_img.astype(np.float32),
+        'center': com3d.astype(np.float32),
+        'M': np.asarray(M, np.float32),
+        'cube': cube,
+        'cam_para': cam,
+    }
+
+
 def _aug(img, gt3Dcrop, com, cube, M, mode, off, rot, sc, paras, flip, rgb):
     out, new_joints, cube_out, com_out, M_out, rot_out = pp.augment_crop(
         img, gt3Dcrop, com, cube, M, mode, off, rot, sc, paras, flip=flip,
@@ -136,7 +186,9 @@ def _aug(img, gt3Dcrop, com, cube, M, mode, off, rot, sc, paras, flip, rgb):
 
 
 class _Base:
-    """Common plumbing: deterministic per-worker RNGs, len/getitem."""
+    """Common plumbing: deterministic per-worker RNGs, len/getitem.
+    use_native: the eval samples' route (True: the native core)."""
+    use_native = True
 
     def __init__(self, seed: int = 23455):
         self.py_rng = _random.Random(seed)
@@ -206,7 +258,7 @@ class DexYCBDataset(_Base):
         return build_rgbd_sample(
             depth, rgb, joint_xyz, center_xyz, cam_para, self.cube,
             self.split == 'train', self.aug_para, self.py_rng, self.np_rng,
-            self.img_size, self.sample_num)
+            self.img_size, self.sample_num, use_native=self.use_native)
 
 
 class HO3D(_Base):
@@ -313,7 +365,8 @@ class HO3D(_Base):
             depth, rgb, joint_xyz, center_xyz, cam_para, self.cube,
             'train' in self.split, self.aug_para, self.py_rng, self.np_rng,
             self.img_size, self.sample_num, color_factor=self.color_factor
-            if 'train' in self.split else 0.0, clamp_pcl=True)
+            if 'train' in self.split else 0.0, clamp_pcl=True,
+            use_native=self.use_native)
 
 
 class NYUDataset(_Base):
@@ -384,7 +437,7 @@ class NYUDataset(_Base):
             depth, rgb, self.all_joints_xyz[idx].copy(),
             self.center_xyz[idx], self.paras, cube,
             self.split == 'train', self.aug_para, self.py_rng, self.np_rng,
-            self.img_size, self.sample_num)
+            self.img_size, self.sample_num, use_native=self.use_native)
 
 
 class STBDataset(_Base):
@@ -451,7 +504,8 @@ class STBDataset(_Base):
             depth, rgb, xyz, center_xyz, self.cam_para, self.cube,
             self.split == 'train', self.aug_para, self.py_rng, self.np_rng,
             self.img_size, self.sample_num,
-            color_factor=self.color_factor if self.split == 'train' else 0.)
+            color_factor=self.color_factor if self.split == 'train' else 0.,
+            use_native=self.use_native)
         # STB applies ImageNet Normalize to the 0-255 floats BEFORE /255
         # (reference dataset_STB.py:19,47,121,131 — ToTensor on float32
         # arrays does not rescale, so the mean/std act on the 255 scale)

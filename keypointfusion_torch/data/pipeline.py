@@ -5,7 +5,10 @@ ahead of the step that takes them.
 `BatchLoader` gives the JAX loader's batches in the JAX loader's order
 for the same dataset and seed: a thread pool, np.random.RandomState(seed
 + epoch) shuffles, drop_last, and each of process_count processes taking
-every process_count-th index of the shuffled order. `device_prefetch`
+every process_count-th index of the shuffled order. With `shard=(rank,
+world)` it loads only the rows that rank holds of each global batch
+(parallel/mesh.py:shard_bounds), from the one shuffled order every rank
+draws alike. `device_prefetch`
 copies each batch from pinned host memory on a side CUDA stream `depth`
 batches ahead of the consumer.
 """
@@ -15,11 +18,12 @@ from __future__ import annotations
 import collections
 import concurrent.futures as futures
 import itertools
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
 
+from keypointfusion_torch.parallel.mesh import shard_bounds
 from keypointfusion_torch.utils.device import resolve_device
 
 
@@ -34,7 +38,8 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, drop_last: bool = True,
                  seed: int = 0, max_prefetch: int = 4,
-                 process_index: int = 0, process_count: int = 1):
+                 process_index: int = 0, process_count: int = 1,
+                 shard: Tuple[int, int] = (0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -44,6 +49,7 @@ class BatchLoader:
         self.max_prefetch = max_prefetch
         self.process_index = process_index
         self.process_count = max(1, process_count)
+        self.shard = shard
         self._epoch = 0
 
     def _local_len(self):
@@ -65,6 +71,9 @@ class BatchLoader:
         self._epoch += 1
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
+        if self.shard[1] > 1:
+            batches = [b[slice(*shard_bounds(len(b), *self.shard))]
+                       for b in batches]
 
         with futures.ThreadPoolExecutor(self.num_workers) as pool:
             pending = collections.deque()

@@ -34,7 +34,9 @@ from keypointfusion_torch.kernels.desa_dense import (
     serving_weights,
 )
 from keypointfusion_torch.models.layers import linear
-from keypointfusion_torch.models.norm import weighted_batch_norm
+from keypointfusion_torch.models.norm import (
+    global_batch_norm, sync_group, weighted_batch_norm,
+)
 from keypointfusion_torch.models.resnet import init_conv
 from keypointfusion_torch.ops.ball_query import (
     ball_query_group, exclusive_rank, group_features,
@@ -159,7 +161,12 @@ class DESA(nn.Module):
         """bn in train mode over every axis but the last, in its
         parameters' dtype (float32), in the compute dtype out
         (TorchBatchNorm with dtype=...); weighted statistics when
-        `weights` is given."""
+        `weights` is given; over every rank's rows inside
+        models/norm.py:global_batch_statistics."""
+        group = sync_group(bn)
+        if group is not None:
+            return global_batch_norm(y, bn, group, weights).to(
+                self.compute_dtype)
         if weights is not None:
             return weighted_batch_norm(y, weights, bn).to(self.compute_dtype)
         y = y.to(bn.weight.dtype)

@@ -16,10 +16,96 @@ unbiased one, momentum 0.1 (flax's 0.9, the weight of the old value); the
 cast to float32 is differentiable, so the gradient reaches a bfloat16
 input. `weighted_batch_norm` and `WeightedTorchBatchNorm` are the JAX
 package's WeightedTorchBatchNorm: statistics over a weighted multiset.
+
+Global-batch statistics (sync BatchNorm): inside
+`global_batch_statistics(model, group)`, every BatchNorm of the model in
+train mode takes its statistics over the rows of every rank of `group`,
+which is what the JAX package's BatchNorm computes under a sharded jit
+(GSPMD reduces over the global batch). They are taken in two passes, as
+JAX takes them: the sum and the count all-reduced, the mean, then the
+squared deviations from it all-reduced; the running variance takes
+Bessel's factor over the global count. The all-reduces are
+torch.distributed.nn's, whose backward all-reduces the gradient, so each
+rank's backward carries the other ranks' share of the statistics'
+gradient. nn.SyncBatchNorm is not used: converting to it would drop these
+classes' compute-dtype policy and the [..., C] layout. Without a group,
+or with a world of 1, the code paths above run unchanged.
 """
 
+import contextlib
+from typing import Optional
+
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 from torch import nn
+
+
+def sync_group(bn: nn.Module):
+    """The process group over whose ranks `bn` takes its train-mode
+    statistics, or None (its own rows): set only inside
+    global_batch_statistics, and only for a world above 1."""
+    return getattr(bn, 'sync_group', None) if bn.training else None
+
+
+@contextlib.contextmanager
+def global_batch_statistics(model: nn.Module, group):
+    """Every BatchNorm of `model` takes train-mode statistics over the
+    global batch of `group`'s ranks while the context lasts. Hold it over
+    the forward and the backward: a recomputed forward (cfg.remat) runs
+    inside the backward. With group None or a world of 1 it changes
+    nothing."""
+    norms = []
+    if group is not None and dist.get_world_size(group) > 1:
+        norms = [m for m in model.modules()
+                 if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    for m in norms:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            del m.sync_group
+
+
+def global_batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+                      group, weights: Optional[torch.Tensor] = None,
+                      channel_dim: int = -1) -> torch.Tensor:
+    """Train-mode BatchNorm of x with statistics over the rows of every
+    rank of `group`, in the dtype of `bn`'s parameters, running
+    statistics updated in place. Channels on `channel_dim`; `weights`
+    (broadcast to x's shape without the channel axis, which must then be
+    last) weight each row as in weighted_batch_norm."""
+    dt = bn.weight.dtype
+    xf = x.to(dt)
+    cd = channel_dim % xf.ndim
+    c = xf.shape[cd]
+    dims = [d for d in range(xf.ndim) if d != cd]
+    shape = [1] * xf.ndim
+    shape[cd] = c
+    if weights is None:
+        w = None
+        count = xf.new_full((1,), xf.numel() // c)
+        local = torch.cat([xf.sum(dims), count])
+    else:
+        if cd != xf.ndim - 1:
+            raise ValueError('weighted statistics take channels last')
+        w = weights.detach().to(dt).expand(x.shape[:-1])[..., None]
+        local = torch.cat([(w * xf).sum(dims), w.sum().reshape(1)])
+    total = dist_nn.all_reduce(local, group=group)
+    n = total[c]
+    mean = total[:c] / n
+    xc = xf - mean.reshape(shape)
+    sq = xc * xc if w is None else w * (xc * xc)
+    var = dist_nn.all_reduce(sq.sum(dims), group=group) / n
+    with torch.no_grad():
+        m = bn.momentum
+        bessel = n / torch.clamp_min(n - 1, 1)
+        bn.running_mean.mul_(1 - m).add_(m * mean)
+        bn.running_var.mul_(1 - m).add_(m * var * bessel)
+        bn.num_batches_tracked.add_(1)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    return xc * scale.reshape(shape) + bn.bias.reshape(shape)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -27,6 +113,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     compute_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = sync_group(self)
+        if group is not None:
+            return global_batch_norm(x, self, group, channel_dim=1).to(
+                self.compute_dtype)
         if x.dtype == torch.float32:
             return super().forward(x).to(self.compute_dtype)
         return super().forward(x.to(self.compute_dtype))
@@ -41,6 +131,10 @@ class TorchBatchNorm(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
         x = x.reshape(-1, shape[-1]).to(self.compute_dtype)
+        group = sync_group(self)
+        if group is not None:
+            return global_batch_norm(x, self, group).to(
+                self.compute_dtype).reshape(shape)
         return super().forward(x).reshape(shape)
 
 
@@ -51,7 +145,11 @@ def weighted_batch_norm(x: torch.Tensor, weights: torch.Tensor,
     (updated in place, as torch's BatchNorm updates them): the statistics
     are sum(w x) / sum(w) and the weighted biased variance, the running
     variance takes the Bessel factor n / (n - 1) with n = sum(w). weights
-    broadcast to x.shape[:-1]; no gradient flows into them."""
+    broadcast to x.shape[:-1]; no gradient flows into them. Inside
+    global_batch_statistics the sums run over every rank's rows."""
+    group = sync_group(bn)
+    if group is not None:
+        return global_batch_norm(x, bn, group, weights)
     c, dt = x.shape[-1], bn.weight.dtype
     xf = x.to(dt).reshape(-1, c)
     w = weights.detach().to(dt).expand(x.shape[:-1]).reshape(-1)

@@ -9,6 +9,9 @@ stage_type semantics (Config.stage_type):
   0 -- no loss, as in the reference's train loop.
 Spatial-weight maps are supervised with gaussians over their global max,
 sigma 3 for block 1 and 2 for block 2, gated by epoch <= spatial_epoch.
+The max is the batch's: under global-batch statistics (a process group
+passed as `group`) the whole global batch's, as the JAX mesh step's
+GSPMD reduction takes it; per-shard, each rank's own.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from keypointfusion_torch.ops.codecs_extra import (
     feature_to_joint, joint_to_feature,
 )
 from keypointfusion_torch.ops.loss import smooth_l1_loss
+from keypointfusion_torch.parallel.mesh import all_max
 
 
 def elementwise_loss(cfg: Config):
@@ -49,10 +53,13 @@ def compute_losses(results: Sequence[torch.Tensor],
                    spatial_weights: Sequence[torch.Tensor],
                    depth: torch.Tensor, uvd_gt: torch.Tensor,
                    xyz_gt: torch.Tensor, frame: CropFrame, cfg: Config,
-                   epoch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   epoch, group=None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, metrics) of KPFusion's results [img_offset,
     img_offset_rgb, b1_3d, b1_2d, b2_3d, b2_2d] and spatial weights, as
-    the JAX function assembles them. epoch: an int or a 0-dim tensor."""
+    the JAX function assembles them. epoch: an int or a 0-dim tensor.
+    group: the process group whose ranks' rows make the batch (None:
+    this process's rows)."""
     kernel = cfg.feature_para[0]
     total = 0.0
     metrics: Dict[str, torch.Tensor] = {}
@@ -90,7 +97,7 @@ def compute_losses(results: Sequence[torch.Tensor],
         sigma = 3.0 if index == 0 else 2.0
         hm_gt = joint_to_heatmap(uvd_gt[..., :2], kernel, feature_size,
                                  sigma=sigma)
-        sw_gt = hm_gt / torch.max(hm_gt)                    # global max
+        sw_gt = hm_gt / all_max(torch.max(hm_gt), group)    # global max
         on = epoch <= cfg.spatial_epoch[index]
         gate = on.float() if torch.is_tensor(on) else float(on)
         loss_sw = loss_fn(sw, sw_gt) * cfg.spatial_weight[index] * gate

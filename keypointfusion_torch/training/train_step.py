@@ -19,6 +19,28 @@ package wraps its optimizer in to shrink XLA's compile, has no
 counterpart: torch's updates are elementwise per tensor already. cfg.remat recomputes the forward in the
 backward (torch.utils.checkpoint), with the forward's dropout masks and
 without a second update of the BatchNorm statistics.
+
+Under a process group (`group`, parallel/mesh.py) each rank runs the step
+on its contiguous slice of the global batch, the JAX steps' `mesh=` forms:
+  * cfg.sync_batchnorm (the JAX default): every BatchNorm takes the global
+    batch's statistics (models/norm.py:global_batch_statistics), as
+    GSPMD's reductions give them in the JAX step, and so does the one
+    batch-wide term of the loss, the spatial-weight targets' max; each
+    rank's loss is its slice's mean and the gradients are averaged over
+    the ranks, which with equal slices is the global mean's gradient.
+  * per-shard BatchNorm (the JAX package's shard_map step, the
+    reference's DataParallel statistics): each rank normalizes with its
+    own slice's statistics; the gradients, the new running statistics
+    and the metrics are averaged over the ranks (JAX's pmean).
+The gradients are averaged by explicit all-reduces after the backward,
+one flat buffer per dtype. DistributedDataParallel is not used: its
+broadcast_buffers would overwrite every rank's statistics with rank 0's
+where JAX averages them, and it raises on the parameters a stage
+configuration leaves without gradient. Each rank passes its own dropout
+generator (the trainer derives it from the seed, the epoch and the rank,
+as JAX folds the axis index into the key), so the ranks draw independent
+masks. The metrics are the global batch's in both forms. The eval step
+returns every rank's results gathered in row order.
 """
 
 from __future__ import annotations
@@ -34,6 +56,10 @@ from torch.utils.checkpoint import checkpoint
 from keypointfusion_torch.config import Config
 from keypointfusion_torch.geometry.camera import CropFrame
 from keypointfusion_torch.models.kpfusion import KPFusion, build_kpfusion
+from keypointfusion_torch.models.norm import global_batch_statistics
+from keypointfusion_torch.parallel.mesh import (
+    all_gather_rows, all_mean, world_size,
+)
 from keypointfusion_torch.training.losses import compute_losses
 
 Batch = Dict[str, torch.Tensor]
@@ -171,12 +197,24 @@ def _remat_contexts(model: torch.nn.Module,
     return contextlib.nullcontext(), recompute()
 
 
-def make_train_step(cfg: Config) -> Callable:
+def _statistics(model: torch.nn.Module):
+    """The running statistics of every BatchNorm of `model`."""
+    return [t for m in model.modules()
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+            for t in (m.running_mean, m.running_var)]
+
+
+def make_train_step(cfg: Config, group=None) -> Callable:
     """train_step(state, batch, generator=None, epoch=0) -> (state,
     metrics). batch: tensors on the model's device (rgb, depth NHWC; pcl;
-    uvd_gt; xyz_gt; cam_para; center; M; cube). The state is updated in
-    place and returned; metrics are compute_losses' values, detached."""
+    uvd_gt; xyz_gt; cam_para; center; M; cube), this rank's slice of the
+    global batch under a process group `group` (see the module's
+    docstring; None: one process). The state is updated in place and
+    returned; metrics are compute_losses' values, detached."""
     kernel = cfg.feature_para[0]
+    world = world_size(group)
+    per_shard = world > 1 and not cfg.sync_batchnorm
+    stats_group = None if per_shard else group
 
     def train_step(state: TrainState, batch: Batch,
                    generator: Optional[torch.Generator] = None, epoch=0):
@@ -187,32 +225,44 @@ def make_train_step(cfg: Config) -> Callable:
             return model(batch['rgb'], batch['depth'], batch['pcl'], frame,
                          kernel, generator)
 
-        if cfg.remat:
-            results, sw = checkpoint(
-                forward, use_reentrant=False,
-                context_fn=lambda: _remat_contexts(model, generator))
-        else:
-            results, sw = forward()
-        loss, metrics = compute_losses(results, sw, batch['depth'],
-                                       batch['uvd_gt'], batch['xyz_gt'],
-                                       frame, cfg, epoch)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with global_batch_statistics(model, stats_group):
+            if cfg.remat:
+                results, sw = checkpoint(
+                    forward, use_reentrant=False,
+                    context_fn=lambda: _remat_contexts(model, generator))
+            else:
+                results, sw = forward()
+            loss, metrics = compute_losses(results, sw, batch['depth'],
+                                           batch['uvd_gt'], batch['xyz_gt'],
+                                           frame, cfg, epoch, stats_group)
+            loss.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if world > 1:
+            all_mean([p.grad for p in model.parameters()
+                      if p.grad is not None], group)
+            if per_shard:
+                all_mean(_statistics(model), group)
+            names = list(metrics)
+            values = torch.stack([metrics[k].float() for k in names])
+            all_mean([values], group)
+            metrics = dict(zip(names, values.unbind()))
         apply_gradients(state)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     return train_step
 
 
-def make_train_step_scan(cfg: Config) -> Callable:
+def make_train_step_scan(cfg: Config, group=None) -> Callable:
     """train_scan(state, batches, generators, epoch=0) -> (state,
     metrics): G steps of make_train_step, step i on batches' element i
-    (tensors [G, B, ...]) with generators[i] (one generator may stand G
-    times), the metrics stacked [G]. It gives exactly what G calls of
-    the single step give: JAX's lax.scan runs them in one dispatch, here
-    they are a loop."""
-    step = make_train_step(cfg)
+    (tensors [G, B, ...]; under `group`, this rank's rows of each, axis 1
+    of parallel/mesh.py:shard_batch) with generators[i] (one generator
+    may stand G times), the metrics stacked [G]. It gives exactly what G
+    calls of the single step give: JAX's lax.scan runs them in one
+    dispatch, here they are a loop."""
+    step = make_train_step(cfg, group)
 
     def train_scan(state: TrainState, batches: Batch,
                    generators: Sequence[Optional[torch.Generator]],
@@ -228,16 +278,22 @@ def make_train_step_scan(cfg: Config) -> Callable:
     return train_scan
 
 
-def make_eval_step(cfg: Config) -> Callable:
+def make_eval_step(cfg: Config, group=None) -> Callable:
     """eval_step(state, batch) -> (results, spatial_weights): the eval
     forward (running statistics, the kernels on the card) without
-    gradients."""
+    gradients. Under a process group `group` each rank runs its slice and
+    every output comes back as the global batch, gathered from the ranks
+    in row order."""
     kernel = cfg.feature_para[0]
 
     def eval_step(state: TrainState, batch: Batch):
         model = state.model.eval()
         with torch.no_grad():
-            return model(batch['rgb'], batch['depth'], batch['pcl'],
-                         frame_from_batch(batch, cfg), kernel)
+            results, sw = model(batch['rgb'], batch['depth'], batch['pcl'],
+                                frame_from_batch(batch, cfg), kernel)
+            if world_size(group) == 1:
+                return results, sw
+            return (tuple(all_gather_rows(t, group) for t in results),
+                    tuple(all_gather_rows(t, group) for t in sw))
 
     return eval_step

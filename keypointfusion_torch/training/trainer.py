@@ -30,8 +30,29 @@ is given. A test split that fails to load leaves test_data None, as in
 the JAX trainer, but the failure is logged to train.log and printed.
 phase='eval' loads what evaluation() reads: HO3D's 'evaluation' split
 (the reference's codalab split) or the test split of the others; the JAX
-trainer loads nothing there, and its evaluation() fails on None. The
-multi-card `mesh` option waits for ROADMAP.md §1 item 18.
+trainer loads nothing there, and its evaluation() fails on None.
+
+Under a process group (`group`, one rank per card, as
+`python -m torch.distributed.run` starts them; the JAX trainer's mesh):
+  * the world is the largest size that divides cfg.batch_size, as
+    auto_mesh picks it; ranks beyond it stay idle;
+  * each rank builds the state, loads the warm starts or the resume, and
+    takes rank 0's parameters and statistics (broadcast_module);
+  * train() steps make_train_step(cfg, group) (cfg.sync_batchnorm picks
+    the BatchNorm policy), each rank loading only its rows of every
+    global batch of the one shuffled order. Each rank's dataset draws its
+    augmentations and point samples for its own rows only, so with a
+    world above 1 the draws differ from a one-process run's; the dropout
+    generator of a rank is seeded by (seed, epoch, rank);
+  * test() and evaluation() load every global batch whole on each rank,
+    so that the samples are those of a one-process run (eval samples
+    draw points from the dataset's RNG too); each rank runs the eval
+    forward on its rows and the results are gathered in row order
+    (make_eval_step(cfg, group)); the last batch is padded to
+    cfg.batch_size, which the world divides;
+  * only rank 0 writes train.log, the metrics, config.json, the
+    test_*.txt and id.txt dumps, pred.json and the checkpoints; every
+    rank computes the same errors, so the best/plateau decisions agree.
 
 config.json holds the run's values (dataclasses.asdict); the JAX trainer
 writes vars(type(cfg)), the dataclass's defaults.
@@ -60,6 +81,10 @@ from keypointfusion_torch.geometry.camera import (
     uvd_nl_to_xyz_nl, xyz_nl_to_uvd_nl,
 )
 from keypointfusion_torch.ops.codecs_extra import feature_to_joint
+from keypointfusion_torch.parallel.mesh import (
+    auto_world, broadcast_module, rank_of, shard_batch, subgroup,
+    world_size,
+)
 from keypointfusion_torch.training.metrics import (
     auc_subset, pa_error_mm, pck_curve, xyz_to_error_mm,
 )
@@ -79,9 +104,11 @@ MANO2HO3D = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
              20, 16, 17, 19, 18]
 
 
-def epoch_seed(seed: int, epoch: int) -> int:
-    """The dropout generator's seed for `epoch` of a run seeded `seed`."""
-    return int(np.random.SeedSequence([seed, epoch]).generate_state(
+def epoch_seed(seed: int, epoch: int, rank: Optional[int] = None) -> int:
+    """The dropout generator's seed for `epoch` of a run seeded `seed`
+    (and, under a process group, for `rank`)."""
+    entropy = [seed, epoch] if rank is None else [seed, epoch, rank]
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0])
 
 
@@ -105,6 +132,14 @@ class MetricsLogger:
         if self.tb is not None:
             for k, v in metrics.items():
                 self.tb.add_scalar(k, float(v), global_step=step)
+
+
+class _NoLogger:
+    """The metrics logger of a rank other than 0: it writes nothing."""
+    tb = None
+
+    def log(self, step: int, metrics: Dict[str, float]):
+        pass
 
 
 class Checkpointer:
@@ -166,7 +201,9 @@ class Trainer:
     """Construction: the sample batch, the state (weights from cfg.seed),
     then the warm starts in the JAX trainer's order (cfg.pretrain,
     cfg.load_model, cfg.finetune_dir) and cfg.resume. The model runs on
-    the CUDA card unless `device` names another.
+    the CUDA card unless `device` names another. `group`: the process
+    group to train and test under (see the module's docstring; None: one
+    process).
 
     `loader_threads` is BatchLoader's thread count (8, the JAX trainer's).
     A dataset draws its augmentations and point samples from one RNG in
@@ -176,10 +213,21 @@ class Trainer:
 
     def __init__(self, cfg: Config, train_data=None, test_data=None,
                  model_dir: Optional[str] = None, device=None,
-                 loader_threads: int = 8):
+                 loader_threads: int = 8, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.loader_threads = loader_threads
+        self.group, self.idle = group, False
+        if group is not None:
+            world = auto_world(cfg.batch_size, world_size(group))
+            self.group = subgroup(group, world)
+            self.idle = self.group is None
+            if self.idle:
+                print(f'Trainer: rank {rank_of(group)} is outside the world '
+                      f'of {world} ranks that divides batch_size '
+                      f'{cfg.batch_size}; it stays idle')
+                return
+        self.rank, self.world = rank_of(self.group), world_size(self.group)
         if train_data is None and cfg.phase == 'train':
             train_data = make_dataset(cfg, 'train')
         test_error = None
@@ -198,18 +246,20 @@ class Trainer:
             cfg.save_dir, 'checkpoint', cfg.dataset,
             cfg.net + ('_' + cfg.model_save if cfg.model_save else ''))
         os.makedirs(self.model_dir, exist_ok=True)
-        with open(osp.join(self.model_dir, 'config.json'), 'w') as f:
-            json.dump(dataclasses.asdict(cfg), f, default=str, indent=1)
-        snapshot_sources(osp.join(self.model_dir, 'files'))
-        logging.basicConfig(
-            filename=osp.join(self.model_dir, 'train.log'),
-            level=logging.INFO, force=False)
-        if test_error is not None:
-            logging.error('the test split of %s did not load; test() is '
-                          'off: %r', cfg.dataset, test_error)
-            print(f'Trainer: the test split of {cfg.dataset} did not load '
-                  f'({test_error!r}); test() is off')
-        self.logger = MetricsLogger(osp.join(self.model_dir, 'runs'))
+        self.logger = _NoLogger()
+        if self.rank == 0:
+            with open(osp.join(self.model_dir, 'config.json'), 'w') as f:
+                json.dump(dataclasses.asdict(cfg), f, default=str, indent=1)
+            snapshot_sources(osp.join(self.model_dir, 'files'))
+            logging.basicConfig(
+                filename=osp.join(self.model_dir, 'train.log'),
+                level=logging.INFO, force=False)
+            if test_error is not None:
+                logging.error('the test split of %s did not load; test() '
+                              'is off: %r', cfg.dataset, test_error)
+                print(f'Trainer: the test split of {cfg.dataset} did not '
+                      f'load ({test_error!r}); test() is off')
+            self.logger = MetricsLogger(osp.join(self.model_dir, 'runs'))
         self.ckpt = Checkpointer(osp.join(self.model_dir, 'ckpt'))
 
         nb = (len(train_data) // cfg.batch_size
@@ -222,16 +272,17 @@ class Trainer:
         for source in (cfg.load_model, cfg.finetune_dir):
             if source:
                 self._warm_start(source)
-        self.train_step = make_train_step(cfg)
-        self.train_scan = make_train_step_scan(cfg) \
+        self.train_step = make_train_step(cfg, self.group)
+        self.train_scan = make_train_step_scan(cfg, self.group) \
             if cfg.steps_per_dispatch > 1 else None
-        self.eval_step = make_eval_step(cfg)
+        self.eval_step = make_eval_step(cfg, self.group)
         self.min_error = float('inf')
         self.start_epoch = 0
         self.plateau_patience = 3   # scheduler='auto' epochs w/o improvement
         self._plateau = 0
         if cfg.resume:
             self.resume('latest')
+        broadcast_module(self.state.model, self.group)
 
     def resume(self, name: str = 'latest'):
         """The whole run's state from checkpoint `name`; training goes on
@@ -279,20 +330,31 @@ class Trainer:
         return synthetic_batch(batch_size=2, point_num=self.cfg.point_num)
 
     def epoch_generator(self, epoch: int) -> torch.Generator:
-        """The dropout generator of `epoch`, on the model's device."""
+        """The dropout generator of `epoch` (and of this rank under a
+        process group of more than one), on the model's device."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(epoch_seed(self.cfg.seed + 1, epoch))
+        gen.manual_seed(epoch_seed(self.cfg.seed + 1, epoch,
+                                   self.rank if self.world > 1 else None))
         return gen
+
+    def _save(self, name: str, epoch: int):
+        """Checkpoint `name`, written by rank 0 alone."""
+        if self.rank == 0:
+            self.ckpt.save(name, self.state, epoch, self.min_error,
+                           self._plateau)
 
     # ------------------------------------------------------------- train --
 
     def train(self):
+        if self.idle:
+            return None
         cfg = self.cfg
         for epoch in range(self.start_epoch, cfg.max_epoch):
             loader = BatchLoader(self.train_data, cfg.batch_size,
                                  shuffle=True,
                                  num_workers=self.loader_threads,
-                                 seed=cfg.seed + epoch)
+                                 seed=cfg.seed + epoch,
+                                 shard=(self.rank, self.world))
             generator = self.epoch_generator(epoch)
             t0 = time.time()
             if self.train_scan is not None:
@@ -316,8 +378,7 @@ class Trainer:
             if test_error <= self.min_error:
                 self.min_error = test_error
                 self._plateau = 0
-                self.ckpt.save('best', self.state, epoch, self.min_error,
-                               self._plateau)
+                self._save('best', epoch)
             elif cfg.scheduler == 'auto':
                 # reduce-on-plateau, the intent of the reference's 'auto'
                 # branch (which feeds the error to StepLR.step as an epoch)
@@ -327,15 +388,16 @@ class Trainer:
                     self.state.lr_scale *= cfg.step_gamma
                     logging.info('plateau: lr_scale -> %.3e',
                                  self.state.lr_scale)
-            self.ckpt.save('latest', self.state, epoch, self.min_error,
-                           self._plateau)
+            self._save('latest', epoch)
             logging.info('epoch %d done, test_error %.4f', epoch,
                          test_error)
         return self.min_error
 
     def _log_step(self, metrics, steps_done: int, t0: float):
-        """One copy of every metric to the host: the loop's only wait for
-        the card besides the step's own."""
+        """One copy of every metric to the host (rank 0's): the loop's only
+        wait for the card besides the step's own."""
+        if self.rank != 0:
+            return
         names = list(metrics)
         values = torch.stack([metrics[k].float() for k in names]).tolist()
         host = dict(zip(names, values))
@@ -395,7 +457,8 @@ class Trainer:
     @staticmethod
     def _pad_batch(batch, batch_size: int):
         """A partial last batch padded to full size by repeating its last
-        sample; returns (batch, n_real)."""
+        sample (a multiple of the world, which divides batch_size);
+        returns (batch, n_real)."""
         n = next(iter(batch.values())).shape[0]
         if n == batch_size:
             return batch, n
@@ -419,11 +482,19 @@ class Trainer:
 
         return device_prefetch(padded(), self.device)
 
+    def _eval(self, batch):
+        """The eval forward of the whole batch: under a process group each
+        rank runs its rows and the results come back gathered."""
+        if self.world > 1:
+            return self.eval_step(self.state, shard_batch(
+                batch, self.rank, self.world))
+        return self.eval_step(self.state, batch)
+
     def _stage_results(self, batch) -> np.ndarray:
         """Every stage's errors and world-mm joints for one batch on the
         host, [stages, B, J, 5]: the error, the Procrustes-aligned error,
         then x, y, z."""
-        results, _ = self.eval_step(self.state, batch)
+        results, _ = self._eval(batch)
         frame = frame_from_batch(batch, self.cfg)
         joints = torch.stack([
             self._decode_stage(results, batch, frame, index, stage).float()
@@ -440,7 +511,10 @@ class Trainer:
         """Per-stage mean and Procrustes-aligned errors, the AUC
         printouts, and the dumps: test_{i}.txt holds stage i's world-mm
         joints, one sample a line, and id.txt the sample ids. Returns the
-        last stage's mean error."""
+        last stage's mean error. Under a process group every rank
+        returns it and rank 0 alone prints and writes."""
+        if self.idle:
+            return None
         if self.test_data is None:
             raise RuntimeError(
                 'no test split: pass test_data, or a cfg.root_dir that '
@@ -450,9 +524,11 @@ class Trainer:
         pa_sum = np.zeros(n_stage)
         first_last_errors = [[], []]
         n_real = []
+        writing = self.rank == 0
         result_files = [open(osp.join(self.model_dir, f'test_{i}.txt'), 'w')
-                        for i in range(n_stage)]
-        id_file = open(osp.join(self.model_dir, 'id.txt'), 'w')
+                        for i in range(n_stage)] if writing else []
+        id_file = open(osp.join(self.model_dir, 'id.txt'), 'w') \
+            if writing else None
         sample_id = 0
         try:
             for nb, batch in enumerate(self._padded_batches(self.test_data,
@@ -462,21 +538,26 @@ class Trainer:
                 for index in range(n_stage):
                     err_sum[index] += float(np.mean(host[index, ..., 0]))
                     pa_sum[index] += float(np.mean(host[index, ..., 1]))
-                    for row in host[index, ..., 2:].reshape(n, -1):
-                        result_files[index].write(
-                            ' '.join(f'{v:.3f}' for v in row) + '\n')
+                    if writing:
+                        for row in host[index, ..., 2:].reshape(n, -1):
+                            result_files[index].write(
+                                ' '.join(f'{v:.3f}' for v in row) + '\n')
                 first_last_errors[0].append(host[0, ..., 0])
                 first_last_errors[1].append(host[-1, ..., 0])
-                for i in range(n):
-                    id_file.write(f'{sample_id + i}\n')
+                if writing:
+                    for i in range(n):
+                        id_file.write(f'{sample_id + i}\n')
                 sample_id += n
         finally:
             for f in result_files:
                 f.close()
-            id_file.close()
+            if id_file is not None:
+                id_file.close()
         nb = len(n_real)
         if nb == 0:
             return float('inf')
+        if not writing:
+            return float(err_sum[-1] / nb)
 
         for which, name in ((0, 'stage 0'), (1, 'stage -1')):
             errors = np.concatenate(first_last_errors[which], 0)
@@ -519,12 +600,16 @@ class Trainer:
         joints in HO3D's joint order, flipped by [1, -1, -1] and in
         metres, and zero meshes. The last partial batch is padded, as in
         test(). With a tensorboard writer, each batch's first sample is
-        logged as skeleton overlays, as the JAX trainer logs them."""
+        logged as skeleton overlays, as the JAX trainer logs them. Under a
+        process group rank 0 writes the file and every rank returns its
+        path."""
+        if self.idle:
+            return None
         data = eval_data if eval_data is not None else self.test_data
         joint_list = []
         n_real = []
         for nb, batch in enumerate(self._padded_batches(data, n_real)):
-            results, _ = self.eval_step(self.state, batch)
+            results, _ = self._eval(batch)
             if self.logger.tb is not None:
                 self._log_eval_images(batch, results[-1], nb)
             world = (results[-1].float() * batch['cube'][:, None] / 2
@@ -533,6 +618,8 @@ class Trainer:
             joint_list += list(world * np.array([1, -1, -1]) / 1000)
         mesh = np.zeros([778, 3])
         out_path = out_path or osp.join(self.model_dir, 'pred.json')
+        if self.rank != 0:
+            return out_path
         with open(out_path, 'w') as f:
             json.dump([[j.tolist() for j in joint_list],
                        [mesh.tolist()] * len(joint_list)], f)

@@ -20,7 +20,13 @@ are smooth (gradients and shapes, no noise) so that the tree stays small:
   * samples.npz: keypointfusion_tpu's DexYCBDataset('s0', split, seed=
     SEED, 1024 points) read at TRAIN_INDICES of the train split and
     TEST_INDICES of the test split, in that order, through its numpy
-    route (the native eval core off); keys '{split}_{index}_{key}'.
+    route (the native eval core off); keys '{split}_{index}_{key}';
+  * native_samples.npz: the test split read at NATIVE_INDICES by a fresh
+    dataset of the same seed through its default eval route, the native
+    core (keypointfusion_tpu/native); keys 'test_{index}_{key}'. The
+    port's native core (keypointfusion_torch/data/native.py) is held to
+    it bit for bit by chip_smoke.py's [native] phase and
+    tests/test_torch_port_native.py.
 """
 
 import json
@@ -38,6 +44,7 @@ FX, FY, FU, FV = 616.0, 616.4, 321.1, 238.9
 SEED = 7
 TRAIN_INDICES = (1, 2)
 TEST_INDICES = (0, 3)
+NATIVE_INDICES = (0, 1, 2, 3)
 # hand blob centres (pixels) and depths (mm) of the four frames
 HANDS = ((300, 250, 610.), (380, 210, 560.), (250, 300, 650.),
          (420, 280, 590.))
@@ -120,7 +127,13 @@ def main():
             json.dump(db, f)
     np.savez_compressed(osp.join(OUT, 'decoded.npz'), **decoded)
 
-    native.available = lambda: False     # the numpy route, as the port
+    if not native.available():
+        raise RuntimeError('the JAX native core did not build (g++)')
+    ds = DexYCBDataset('s0', 'test', OUT, sample_num=1024, seed=SEED)
+    np.savez_compressed(osp.join(OUT, 'native_samples.npz'), **{
+        f'test_{i}_{k}': v for i in NATIVE_INDICES for k, v in ds[i].items()})
+
+    native.available = lambda: False     # the numpy route
     samples = {}
     for split, indices in (('train', TRAIN_INDICES), ('test', TEST_INDICES)):
         ds = DexYCBDataset('s0', split, OUT, sample_num=1024, seed=SEED)

@@ -14,11 +14,11 @@ Tolerances, per key:
   * rgb, depth (nearest-warped images), pcl, xyz_gt, uvd_gt, center, M,
     cube, cam_para: 0, bit for bit, against the JAX module's numpy route.
   * The test splits also against the JAX module's default eval route,
-    its fused C++ core (keypointfusion_tpu/native) when it is built: rgb
-    bit for bit, every other key within 1e-5 in normalized units (the
-    core rounds the normalized depth, the point cloud and the 2-D labels
-    in float32 in another order; 4.2e-7 measured, HO3D's fractional
-    depths included).
+    its fused C++ core (keypointfusion_tpu/native) when it is built,
+    which the port's default route takes too (data/native.py): bit for
+    bit. (The core rounds the normalized depth, the point cloud and the
+    2-D labels in float32 in another order than the numpy route: 4.2e-7
+    apart, HO3D's fractional depths included.)
 BatchLoader over the port's dataset gives the JAX BatchLoader's batches
 over the JAX dataset, in the same order, bit for bit, with one worker
 thread (with more, the order in which samples draw from the dataset's
@@ -46,10 +46,9 @@ from tests.test_datasets import _write_fake_dexycb
 FX, FY, FU, FV = 600.0, 600.0, 320.0, 240.0
 KEYS = ('rgb', 'depth', 'pcl', 'xyz_gt', 'uvd_gt', 'center', 'M', 'cube',
         'cam_para')
-NATIVE_TOL = 1e-5
 
 
-def _same_samples(port, jax_ds, indices, tol=0.0):
+def _same_samples(port, jax_ds, indices):
     assert len(port) == len(jax_ds)
     for i in indices:
         got, want = port[i], jax_ds[i]
@@ -57,19 +56,15 @@ def _same_samples(port, jax_ds, indices, tol=0.0):
         for k in KEYS:
             assert got[k].dtype == want[k].dtype == np.float32, k
             assert got[k].shape == want[k].shape, k
-            if tol == 0.0 or k == 'rgb':
-                np.testing.assert_array_equal(got[k], want[k],
-                                              err_msg=f'{k}, sample {i}')
-            else:
-                np.testing.assert_allclose(got[k], want[k], rtol=0,
-                                           atol=tol,
-                                           err_msg=f'{k}, sample {i}')
+            np.testing.assert_array_equal(got[k], want[k],
+                                          err_msg=f'{k}, sample {i}')
 
 
 @pytest.fixture
 def numpy_route(monkeypatch):
-    """The JAX module's eval path without its native core."""
+    """The eval path without the native core, in both packages."""
     monkeypatch.setattr(native, 'available', lambda: False)
+    monkeypatch.setattr(ds._Base, 'use_native', False)
 
 
 # ----------------------------------------------------------------- trees ---
@@ -225,14 +220,15 @@ def test_dexycb_matches_jax(dexycb_root, split, numpy_route):
 
 @pytest.mark.parametrize('name', ['dexycb', 'ho3d', 'nyu', 'STB'])
 def test_test_split_against_native_core(name, request):
-    """The JAX module's default eval route: its native core when built
-    (the numpy route, bit for bit, otherwise)."""
+    """The JAX module's default eval route, its native core when built
+    (the numpy route otherwise, which the port then takes too), against
+    the port's default route, bit for bit."""
     root = request.getfixturevalue(f'{name.lower()}_root')
     cfg = Config(dataset=name, root_dir=root, point_num=128)
     jcfg = JConfig(dataset=name, root_dir=root, point_num=128)
-    _same_samples(ds.make_dataset(cfg, 'test'), jds.make_dataset(jcfg,
-                                                                 'test'),
-                  range(8), tol=NATIVE_TOL if native.available() else 0.0)
+    port = ds.make_dataset(cfg, 'test')
+    port.use_native = native.available()
+    _same_samples(port, jds.make_dataset(jcfg, 'test'), range(8))
 
 
 @pytest.mark.parametrize('version', ['v2', 'v3'])
@@ -319,8 +315,9 @@ FIXTURE = os.path.join(os.path.dirname(__file__), 'fixtures',
 def test_committed_fixture():
     """tests/fixtures/torch_port_dexycb (scripts/make_torch_port_fixture.py):
     the port decodes its images to the stored cv2 decode and builds the
-    stored JAX samples, bit for bit, as chip_smoke.py's [data] phase
-    checks where there is no cv2 and no JAX."""
+    stored JAX samples (the numpy route's), bit for bit, as
+    chip_smoke.py's [data] phase checks where there is no cv2 and no
+    JAX."""
     from keypointfusion_torch.data.image_io import imread
     decoded = np.load(os.path.join(FIXTURE, 'decoded.npz'))
     imgs = os.path.join(FIXTURE, 'DexYCB', 'imgs')
@@ -337,6 +334,7 @@ def test_committed_fixture():
     for split, indices in (('train', (1, 2)), ('test', (0, 3))):
         port = ds.DexYCBDataset('s0', split, FIXTURE, sample_num=1024,
                                 seed=7)
+        port.use_native = False
         for i in indices:
             got = port[i]
             for k in KEYS:

@@ -231,7 +231,8 @@ def test_port_imports_no_jax():
     """Importing every module of the port loads neither JAX nor the JAX
     package, nor an image library (cv2, PIL, imageio: the card's machine
     has none), and no source of the port or of its card scripts imports
-    them."""
+    them. The ranks that parallel/dryrun.py spawns check their own
+    modules (tests/test_torch_port_parallel.py:test_dryrun_two_ranks)."""
     names = [m.name for m in pkgutil.walk_packages(
         keypointfusion_torch.__path__, 'keypointfusion_torch.')]
     assert {'keypointfusion_torch.serving',
@@ -261,7 +262,11 @@ def test_port_imports_no_jax():
             'keypointfusion_torch.models.transformer_extra',
             'keypointfusion_torch.data.patch_warp',
             'keypointfusion_torch.data.occlusion',
-            'keypointfusion_torch.data.extra_datasets'} <= set(names)
+            'keypointfusion_torch.data.extra_datasets',
+            'keypointfusion_torch.parallel.mesh',
+            'keypointfusion_torch.parallel.dryrun',
+            'keypointfusion_torch.data.native',
+            'keypointfusion_torch.utils.profiling'} <= set(names)
     code = ('import sys\n'
             f'for name in {names!r}:\n'
             '    __import__(name)\n'
