@@ -43,8 +43,11 @@ each request launching K2 twice and K1 four times, counters set to 0
 just before it; two gloo ranks on the card under both BatchNorm
 policies against the world-1 step; an NCCL world of one); and the
 native eval core (check_native: the JAX core's stored samples, 0 values
-differing; ms a sample and loader samples/s by both routes). Weights
-are random, drawn from a seed.
+differing; ms a sample and loader samples/s by both routes); and the
+debug renderers of utils/vis.py (check_vis_debug: the JAX package's
+outputs in a fixture, bit for bit; then a float32 eval forward at batch
+8 rendered, K2 once and K1 twice in it, nothing launched by the
+renderers, host ms a call). Weights are random, drawn from a seed.
 Every phase prints one line; then a JSON line describing each kernel, the card's name and power
 limit as nvidia-smi reports them, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero. Without a CUDA
@@ -71,6 +74,7 @@ one TF32 pass fails K1 'highest''s and K3's limits.
 import collections
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -79,6 +83,7 @@ import warnings
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 64
 REQUESTS = 4
 TIE_ELEMENTS = 8   # batch elements of K2's flat-background case
@@ -259,6 +264,13 @@ PARALLEL_BN_ROWS = 4096
 # the [native] phase: the test split's samples timed by each route
 NATIVE_TEST = 2 * BATCH
 NATIVE_THREADS = (1, 8)
+# the [vis_debug] phase: the debug renderers on the fixture's inputs
+# against the JAX package's digests (scripts/make_torch_port_vis_fixture.py),
+# bit for bit; then on a float32 eval forward's outputs at VIS_BATCH, host
+# ms a call over VIS_ITERS calls after one
+VIS_FIXTURE = 'tests/fixtures/torch_port_vis/vis_debug.npz'
+VIS_BATCH = 8
+VIS_ITERS = 3
 OUTPUTS = ['img_offset', 'img_offset_rgb', 'b1_3d', 'b1_2d', 'b2_3d',
            'b2_2d', 'spatial_weight_1', 'spatial_weight_2']
 
@@ -2782,6 +2794,17 @@ def extra_host_ms(patch_warp, extra_datasets):
     return out
 
 
+def load_test_cases(name):
+    """tests/<name>.py (numpy only), loaded by path: the card's machine has
+    an installed package named `tests` that hides the repo's."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, 'tests', f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def check_extra_data(dev, kernels, card):
     """The off-path data modules on the card's host (no cv2, no JAX):
     1. data/patch_warp.py and data/extra_datasets.py on the inputs of
@@ -2798,21 +2821,14 @@ def check_extra_data(dev, kernels, card):
        (mask_image with its draws from a card generator), a
        EXTRA_MASK_SIZE crop and EXTRA_POINTS cloud points.
     4. no kernel launched."""
-    import importlib.util
     import os
     import torch
     from keypointfusion_torch.data import extra_datasets, occlusion
     from keypointfusion_torch.data import patch_warp
-    # by path: an installed package named `tests` would hide the repo's
-    root = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(
-        'torch_port_extra_cases',
-        os.path.join(root, 'tests', 'torch_port_extra_cases.py'))
-    cases = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cases)
+    cases = load_test_cases('torch_port_extra_cases')
     t0 = time.perf_counter()
     reset(kernels)
-    stored = np.load(os.path.join(root, EXTRA_FIXTURE))
+    stored = np.load(os.path.join(REPO, EXTRA_FIXTURE))
     inp = {k[3:]: stored[k] for k in stored.files if k.startswith('in_')}
     got = cases.case_outputs(patch_warp, extra_datasets, inp)
     differ = [k for k, v in got.items()
@@ -2918,6 +2934,36 @@ def parallel_references(dev, cfg, batch, weights):
     return start, {True: whole, False: shard}, list(rows[0][2])
 
 
+def global_batch_norm_errors(dev, group):
+    """models/norm.py:global_batch_norm over the process group `group`
+    against torch's train-mode batch_norm (TorchBatchNorm) on
+    PARALLEL_BN_ROWS x 128 seeded values on `dev`: {'out', 'grad', 'mean',
+    'var': max abs error over the reference's max abs} for the outputs,
+    the input gradients and the running statistics."""
+    import copy
+    import torch
+    from keypointfusion_torch.models.norm import (
+        TorchBatchNorm, global_batch_norm,
+    )
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(PARALLEL_BN_ROWS, 128, device=dev, generator=gen) * 3
+         + 1).requires_grad_()
+    w = torch.randn(PARALLEL_BN_ROWS, 128, device=dev, generator=gen)
+    bn = TorchBatchNorm(128).to(dev).train()
+    bn_sync = copy.deepcopy(bn)
+    y = bn(x)
+    (gx,) = torch.autograd.grad((y * w).sum(), x)
+    y_sync = global_batch_norm(x, bn_sync, group)
+    (gx_sync,) = torch.autograd.grad((y_sync * w).sum(), x)
+    errors = {}
+    for key, a, ref in (('out', y_sync, y), ('grad', gx_sync, gx),
+                        ('mean', bn_sync.running_mean, bn.running_mean),
+                        ('var', bn_sync.running_var, bn.running_var)):
+        a, ref = a.detach(), ref.detach()
+        errors[key] = float((a - ref).abs().max() / ref.abs().max())
+    return errors
+
+
 def check_parallel(dev, kernels, card):
     """The multi-device paths on the one card. It tells nothing of speed
     across cards: both replicas and both ranks share this card.
@@ -2945,7 +2991,6 @@ def check_parallel(dev, kernels, card):
        torch's train-mode batch_norm on PARALLEL_BN_ROWS x 128 within
        PARALLEL_BN_TOL of scale, outputs, input gradients and running
        statistics."""
-    import copy
     import os
     import shutil
     import tempfile
@@ -2954,9 +2999,6 @@ def check_parallel(dev, kernels, card):
     from keypointfusion_torch.config import Config
     from keypointfusion_torch.data.synthetic import (
         synthetic_batch, synthetic_frames,
-    )
-    from keypointfusion_torch.models.norm import (
-        TorchBatchNorm, global_batch_norm,
     )
     from keypointfusion_torch.parallel.dryrun import run_ranks, train_ranks
     from keypointfusion_torch.parallel.mesh import init_process_group
@@ -3083,25 +3125,7 @@ def check_parallel(dev, kernels, card):
             if failures:
                 raise AssertionError(f'parallel nccl step: {failures}; '
                                      f'{nccl_errors}')
-            gen = torch.Generator(device=dev).manual_seed(3)
-            x = (torch.randn(PARALLEL_BN_ROWS, 128, device=dev,
-                             generator=gen) * 3 + 1).requires_grad_()
-            w = torch.randn(PARALLEL_BN_ROWS, 128, device=dev,
-                            generator=gen)
-            bn = TorchBatchNorm(128).to(dev).train()
-            bn_sync = copy.deepcopy(bn)
-            y = bn(x)
-            (gx,) = torch.autograd.grad((y * w).sum(), x)
-            y_sync = global_batch_norm(x, bn_sync, group)
-            (gx_sync,) = torch.autograd.grad((y_sync * w).sum(), x)
-            bn_err = {}
-            for key, a, ref in (
-                    ('out', y_sync, y), ('grad', gx_sync, gx),
-                    ('mean', bn_sync.running_mean, bn.running_mean),
-                    ('var', bn_sync.running_var, bn.running_var)):
-                a, ref = a.detach(), ref.detach()
-                bn_err[key] = float((a - ref).abs().max()
-                                    / ref.abs().max())
+            bn_err = global_batch_norm_errors(dev, group)
             if any(not e <= PARALLEL_BN_TOL for e in bn_err.values()):
                 raise AssertionError(f'parallel nccl global_batch_norm: '
                                      f'{bn_err}')
@@ -3124,6 +3148,27 @@ def check_parallel(dev, kernels, card):
         card=json.dumps(card))
 
 
+def native_fixture_differences():
+    """The fixture's test split through the eval __getitem__'s default
+    (native) route against the JAX package's default route's samples
+    stored in native_samples.npz. Returns (values compared, values that
+    differ); raises where a sample's dtype or shape differs."""
+    from keypointfusion_torch.data.datasets import DexYCBDataset
+    fixture = os.path.join(REPO, DATA_FIXTURE)
+    stored = np.load(os.path.join(fixture, 'native_samples.npz'))
+    ds = DexYCBDataset('s0', 'test', fixture, sample_num=1024, seed=7)
+    values = differ = 0
+    for i in sorted({int(key.split('_')[1]) for key in stored.files}):
+        for k, v in ds[i].items():
+            want = stored[f'test_{i}_{k}']
+            if v.shape != want.shape or v.dtype != want.dtype:
+                raise AssertionError(f'native: sample {i} {k} is '
+                                     f'{v.dtype}{v.shape}')
+            values += v.size
+            differ += int((v != want).sum())
+    return values, differ
+
+
 def check_native(dev, card):
     """The native eval core (data/native.py, csrc/host/preprocess.cc) on
     the card's host: its build; the fixture's test split through the
@@ -3142,21 +3187,10 @@ def check_native(dev, card):
     from keypointfusion_torch.data.pipeline import BatchLoader
 
     t0 = time.perf_counter()
-    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           DATA_FIXTURE)
+    fixture = os.path.join(REPO, DATA_FIXTURE)
     native.CORE.load()
     build_s = time.perf_counter() - t0
-    stored = np.load(os.path.join(fixture, 'native_samples.npz'))
-    ds = DexYCBDataset('s0', 'test', fixture, sample_num=1024, seed=7)
-    values = differ = 0
-    for i in sorted({int(key.split('_')[1]) for key in stored.files}):
-        for k, v in ds[i].items():
-            want = stored[f'test_{i}_{k}']
-            if v.shape != want.shape or v.dtype != want.dtype:
-                raise AssertionError(f'native: sample {i} {k} is '
-                                     f'{v.dtype}{v.shape}')
-            values += v.size
-            differ += int((v != want).sum())
+    values, differ = native_fixture_differences()
     if differ or values == 0:
         raise AssertionError(f'native: {differ} of {values} values differ '
                              f'from the JAX core\'s')
@@ -3189,6 +3223,110 @@ def check_native(dev, card):
         getitem_ms=json.dumps(getitem_ms),
         loader_samples_per_s=json.dumps(loader), cpu_count=os.cpu_count(),
         seconds=round(time.perf_counter() - t0, 2), card=json.dumps(card))
+
+
+def vis_fixture_differences():
+    """utils/vis.py's debug renderers on VIS_FIXTURE's stored inputs
+    (tests/torch_port_vis_cases.py's calls; the written PNGs read back by
+    data/image_io.py:imread, the .obj files as bytes) against the JAX
+    package's digests stored there. Returns (the number of outputs, the
+    keys that differ or are missing on one side)."""
+    import tempfile
+    from keypointfusion_torch.data.image_io import imread
+    from keypointfusion_torch.utils import vis
+    cases = load_test_cases('torch_port_vis_cases')
+    stored = np.load(os.path.join(REPO, VIS_FIXTURE))
+    inp = {k[3:]: stored[k] for k in stored.files if k.startswith('in:')}
+    with tempfile.TemporaryDirectory(prefix='kpf_vis_') as workdir:
+        got = cases.case_outputs(vis, imread, workdir, inp)
+    return len(got), cases.differing(got, stored)
+
+
+def check_vis_debug(dev, kernels, card):
+    """The debug renderers of utils/vis.py on the card's host (no cv2, no
+    JAX):
+    1. vis_fixture_differences(): every output bit for bit with the JAX
+       package's (tolerance 0).
+    2. A float32 eval forward of KPFusion-resnet-18 at full width and
+       depth, batch VIS_BATCH, on the card: K2 'highest' once and K1
+       'highest' twice, counters set to 0 just before it. Its outputs,
+       moved to the host, rendered into a temporary directory:
+       draw_heatmap and debug_img_heatmap from img_offset's heatmap
+       channels 3J:4J, draw_offset_field from its offsets (channels
+       j*3+axis), debug_pcl_pose from the point cloud and b2_3d; host ms
+       a call over VIS_ITERS calls after one; the counters read 0 across
+       the renderers."""
+    import tempfile
+    import torch
+    from keypointfusion_torch.config import Config
+    from keypointfusion_torch.data.synthetic import synthetic_batch
+    from keypointfusion_torch.models.kpfusion import build_kpfusion
+    from keypointfusion_torch.utils import vis
+
+    t0 = time.perf_counter()
+    n_outputs, differ = vis_fixture_differences()
+    if differ:
+        raise AssertionError(f'vis_debug: {len(differ)} of {n_outputs} '
+                             f'outputs differ from the fixture: {differ}')
+
+    cfg = Config()
+    batch = synthetic_batch(batch_size=VIS_BATCH, point_num=cfg.point_num,
+                            seed=4)
+    model = build_kpfusion(cfg, device=dev, seed=0)
+    inputs = model_inputs(batch, dev)
+    torch.cuda.synchronize()
+    reset(kernels)
+    with torch.inference_mode():
+        res, _ = model(*inputs)
+    torch.cuda.synchronize()
+    forward_launches = counts(kernels)
+    want = dict.fromkeys(kernels, 0)
+    want['pixel_sampler'], want['desa_dense'] = 1, 2
+    if forward_launches != want:
+        raise AssertionError(f'vis_debug: the eval forward launched '
+                             f'{forward_launches}, expected {want}')
+    j = cfg.joint_num
+    dense = res[OUTPUTS.index('img_offset')].float().cpu().numpy()
+    b2_3d = res[OUTPUTS.index('b2_3d')].float().cpu().numpy()
+    heat = np.ascontiguousarray(dense[..., 3 * j:4 * j].transpose(0, 3, 1, 2))
+    depth, pcl = batch['depth'], batch['pcl']
+    if not (np.isfinite(dense).all() and np.isfinite(b2_3d).all()):
+        raise AssertionError('vis_debug: the forward gave non-finite values')
+
+    reset(kernels)
+    host, shapes = {}, {}
+    with tempfile.TemporaryDirectory(prefix='kpf_vis_debug_') as workdir:
+        calls = {
+            'draw_heatmap': lambda: vis.draw_heatmap(depth[0], heat[0, 0]),
+            'debug_img_heatmap': lambda: vis.debug_img_heatmap(
+                depth, heat, 0, workdir, depth.shape[1], save=True),
+            'draw_offset_field': lambda: vis.draw_offset_field(
+                depth[0], dense[0], joint_id=0),
+            'debug_pcl_pose': lambda: vis.debug_pcl_pose(
+                pcl, b2_3d, 0, 'dexycb', workdir, 'pcl'),
+        }
+        for name, fn in calls.items():
+            out = fn()
+            shapes[name] = None if out is None else list(out.shape)
+            t = time.perf_counter()
+            for _ in range(VIS_ITERS):
+                fn()
+            host[name] = round((time.perf_counter() - t) / VIS_ITERS * 1e3,
+                               3)
+        files = sorted(os.listdir(workdir))
+    launched = counts(kernels)
+    if any(launched.values()):
+        raise AssertionError(f'vis_debug: the renderers launched {launched}')
+    want_files = VIS_BATCH * j + VIS_BATCH
+    if len(files) != want_files:
+        raise AssertionError(f'vis_debug: {len(files)} files written, '
+                             f'expected {want_files}')
+    log('vis_debug', fixture_outputs=n_outputs, differ=len(differ),
+        batch=VIS_BATCH, forward_launches=json.dumps(forward_launches),
+        renderer_launches=json.dumps(launched),
+        host_ms_a_call=json.dumps(host), shapes=json.dumps(shapes),
+        files=len(files), seconds=round(time.perf_counter() - t0, 2),
+        card=json.dumps(card))
 
 
 def main():
@@ -3252,6 +3390,7 @@ def main():
     check_extra_data(dev, kernels, card)
     check_parallel(dev, kernels, card)
     check_native(dev, card)
+    check_vis_debug(dev, kernels, card)
 
     replaces = {'pixel_sampler': 'pixel_sampler_pallas.py:212',
                 'desa_dense': 'desa_dense_pallas.py:257',

@@ -28,6 +28,25 @@ crop or a warp holds cv2's pixels:
     with BORDER_CONSTANT: value[c] fills channel c, and a 2-D image
     takes value[0].
 
+The debug renderers of utils/vis.py add four more:
+
+  * resize_linear(src, (w, h)) is cv2.resize with its default
+    INTER_LINEAR on a float32 map of at least 2 x 2: each destination
+    coordinate (d + 0.5) * (w_src / w) - 0.5 in double (not
+    1 / (w / w_src): the two differ where it is an integer), its
+    fraction cast to float32, then a horizontal and a vertical lerp in
+    float32, fma(f, p1 - p0, p0) each (the taps past an edge clamped to
+    it, which makes the lerp exact). cv2 5.0 takes another path for a
+    source of one row or one column, which raises here.
+  * add_weighted(a, alpha, b, beta, gamma) is cv2.addWeighted on uint8:
+    fma(a, alpha, fma(b, beta, gamma)) in float32, then saturated.
+  * apply_colormap_jet(u8) is cv2.applyColorMap(u8, cv2.COLORMAP_JET):
+    cv2 5.0's 256-entry BGR table.
+  * to_u8_saturate(x) is convertTo(CV_8U), which cv2.imwrite applies to
+    an image of any other depth than 8 or 16 bits (float32 among them):
+    rounded half to even, saturated, and 0 where the rounded value does
+    not fit an int32 (NaN and the infinities too).
+
 Pixels that map outside the source take the border value. The source
 may have channels ([H, W, C]); a 2-D source stays 2-D.
 """
@@ -310,3 +329,94 @@ def copy_make_border(img: np.ndarray, top: int, bottom: int, left: int,
         fill[0].astype(img.dtype)
     out[top:top + h, left:left + w] = img
     return out
+
+
+def resize_linear(src: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(src, dsize) (INTER_LINEAR) of a float32 [H, W] map,
+    H and W at least 2."""
+    src = np.asarray(src)
+    if src.dtype != np.float32 or src.ndim != 2 or min(src.shape) < 2:
+        raise ValueError(f'resize_linear takes a float32 [H, W] map of at '
+                         f'least 2 x 2, got {src.dtype} {src.shape}')
+    w, h = int(dsize[0]), int(dsize[1])
+    sh, sw = src.shape
+
+    def taps(dn: int, sn: int):
+        x = (np.arange(dn) + 0.5) * (sn / dn) - 0.5
+        i = np.floor(x)
+        return (np.clip(i, 0, sn - 1).astype(np.int64),
+                np.clip(i + 1, 0, sn - 1).astype(np.int64),
+                (x - i).astype(np.float32))
+
+    x0, x1, fx = taps(w, sw)
+    y0, y1, fy = taps(h, sh)
+    rows = _lerp(fx[None, :], src[:, x0], src[:, x1])
+    return _lerp(fy[:, None], rows[y0], rows[y1])
+
+
+def add_weighted(a: np.ndarray, alpha: float, b: np.ndarray, beta: float,
+                 gamma: float) -> np.ndarray:
+    """cv2.addWeighted(a, alpha, b, beta, gamma) of two uint8 images of
+    one shape."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != np.uint8 or b.dtype != np.uint8 or a.shape != b.shape:
+        raise ValueError(f'add_weighted takes two uint8 images of one '
+                         f'shape, got {a.dtype} {a.shape}, {b.dtype} '
+                         f'{b.shape}')
+    v = _fma32(a, np.float32(alpha), _fma32(b, np.float32(beta),
+                                             np.float32(gamma)))
+    return to_u8_saturate(v)
+
+
+# cv2.applyColorMap(arange(256), COLORMAP_JET) of cv2 5.0, BGR
+_JET_BGR = np.frombuffer(bytes.fromhex(
+    '8000008400008800008c00009000009400009800009c0000a00000a40000a800'
+    '00ac0000b00000b40000b80000bc0000c00000c40000c80000cc0000d00000d4'
+    '0000d80000dc0000e00000e40000e80000ec0000f00000f40000f80000fc0000'
+    'ff0000ff0400ff0800ff0c00ff1000ff1400ff1800ff1c00ff2000ff2400ff28'
+    '00ff2c00ff3000ff3400ff3800ff3c00ff4000ff4400ff4800ff4c00ff5000ff'
+    '5400ff5800ff5c00ff6000ff6400ff6800ff6c00ff7000ff7400ff7800ff7c00'
+    'ff8000ff8400ff8800ff8c00ff9000ff9400ff9800ff9c00ffa000ffa400ffa8'
+    '00ffac00ffb000ffb400ffb800ffbc00ffc000ffc400ffc800ffcc00ffd000ff'
+    'd400ffd800ffdc00ffe000ffe400ffe800ffec00fff000fff400fff800fffc00'
+    'feff02faff06f6ff0af2ff0eeeff12eaff16e6ff1ae2ff1edeff22daff26d6ff'
+    '2ad2ff2eceff32caff36c6ff3ac2ff3ebeff42baff46b6ff4ab2ff4eaeff52aa'
+    'ff56a6ff5aa2ff5e9eff629aff6696ff6a92ff6e8eff728aff7686ff7a82ff7e'
+    '7eff827aff8676ff8a72ff8e6eff926aff9666ff9a62ff9e5effa25affa656ff'
+    'aa52ffae4effb24affb646ffba42ffbe3effc23affc636ffca32ffce2effd22a'
+    'ffd626ffda22ffde1effe21affe616ffea12ffee0efff20afff606fffa01fffe'
+    '00fcff00f8ff00f4ff00f0ff00ecff00e8ff00e4ff00e0ff00dcff00d8ff00d4'
+    'ff00d0ff00ccff00c8ff00c4ff00c0ff00bcff00b8ff00b4ff00b0ff00acff00'
+    'a8ff00a4ff00a0ff009cff0098ff0094ff0090ff008cff0088ff0084ff0080ff'
+    '007cff0078ff0074ff0070ff006cff0068ff0064ff0060ff005cff0058ff0054'
+    'ff0050ff004cff0048ff0044ff0040ff003cff0038ff0034ff0030ff002cff00'
+    '28ff0024ff0020ff001cff0018ff0014ff0010ff000cff0008ff0004ff0000ff'
+    '0000fc0000f80000f40000f00000ec0000e80000e40000e00000dc0000d80000'
+    'd40000d00000cc0000c80000c40000c00000bc0000b80000b40000b00000ac00'
+    '00a80000a40000a000009c00009800009400009000008c000088000084000080'),
+    np.uint8).reshape(256, 3)
+
+
+def apply_colormap_jet(img: np.ndarray) -> np.ndarray:
+    """cv2.applyColorMap(img, cv2.COLORMAP_JET) of a uint8 [H, W] (or
+    [H, W, 1]) image: [H, W, 3] BGR."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError(f'apply_colormap_jet takes a uint8 [H, W] image, '
+                         f'got {img.dtype} {img.shape}')
+    return _JET_BGR[img]
+
+
+def to_u8_saturate(x) -> np.ndarray:
+    """Mat.convertTo(CV_8U): what cv2.imwrite makes of an image of a
+    depth PNG does not take (float32 among them)."""
+    x = np.asarray(x)
+    if np.issubdtype(x.dtype, np.integer):
+        return np.clip(x, 0, 255).astype(np.uint8)
+    r = np.rint(x.astype(np.float64))
+    # cvRound gives INT_MIN where the value does not fit (NaN too)
+    with np.errstate(invalid='ignore'):
+        r = np.where((r >= -2.0 ** 31) & (r < 2.0 ** 31), r, 0.0)
+    return np.clip(r, 0, 255).astype(np.uint8)

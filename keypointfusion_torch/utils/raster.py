@@ -18,6 +18,11 @@ sets for the same call, so an overlay equals cv2's bit for bit
     that leave the image): the line's rectangle in 16-bit fixed point
     filled by `FillConvexPoly` (its outline drawn by `Line2`) and a
     filled circle of radius (t + 1) // 2 at each end.
+  * `arrowed_line(img, p0, p1, color, thickness, tip_length)`:
+    cv2.arrowedLine with LINE_8 and shift 0: the shaft `line(p0, p1)`,
+    then two tip lines drawn from q to p1, q = p1 + tip_length * |p0 - p1|
+    * (cos, sin)(atan2(p0 - p1) +- pi / 4), each coordinate rounded in
+    double half to even (cvRound).
   * `gray_to_bgr(img)`: cv2.cvtColor(img, cv2.COLOR_GRAY2BGR).
 
 Points are integer pixel coordinates, as the callers pass int(x) (toward
@@ -28,6 +33,7 @@ The functions draw in place and return the image.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -301,6 +307,24 @@ def line(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int],
         _line(img, px, *p0, *p1)
     else:
         _thick_line(img, px, p0, p1, int(thickness))
+    return img
+
+
+def arrowed_line(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int],
+                 color: Sequence[float], thickness: int = 1,
+                 tip_length: float = 0.3) -> np.ndarray:
+    """cv2.arrowedLine(img, p0, p1, color, thickness, tipLength=
+    tip_length): an arrow from p0 to its tip p1."""
+    p0, p1 = (int(p0[0]), int(p0[1])), (int(p1[0]), int(p1[1]))
+    dx, dy = p0[0] - p1[0], p0[1] - p1[1]
+    tip = math.sqrt(float(dx * dx + dy * dy)) * tip_length
+    line(img, p0, p1, color, thickness)
+    angle = math.atan2(float(dy), float(dx))
+    for side in (math.pi / 4, -math.pi / 4):
+        # round(): half to even, as cvRound
+        q = (round(p1[0] + tip * math.cos(angle + side)),
+             round(p1[1] + tip * math.sin(angle + side)))
+        line(img, q, p1, color, thickness)
     return img
 
 

@@ -55,6 +55,18 @@ Tolerances:
     against the CPU within chip_smoke.py's OPTIONAL_TOL, no kernel
     launched; occlusion's mask_image and joint_visibility equal on the
     card and the CPU given the same draws.
+  * The multi-device paths and the native core, as chip_smoke.py's
+    [parallel] and [native] phases hold them: two engine replicas on the
+    card against one engine at batch 8 (float32 within SERVING_TOL, 0.0125
+    mm; bfloat16 within replica_errors' budget; K2 twice and K1 four
+    times a request); global_batch_norm in an NCCL world of one against
+    torch's BatchNorm within PARALLEL_BN_TOL of scale; the fixture's test
+    split through data/native.py against the JAX core's stored samples,
+    tolerance 0. A spawned two-rank gloo step costs ~25 s on the card's
+    machine and stays in chip_smoke.py's [parallel] only.
+  * The debug renderers (utils/vis.py) on the [vis_debug] fixture's
+    inputs against the JAX package's digests, tolerance 0, so that the
+    card's machine's numpy is held outside chip_smoke.py too.
 """
 
 import numpy as np
@@ -857,3 +869,78 @@ def test_occlusion_on_card_matches_cpu(cuda_device):
     out = occlusion.mask_image(depth.to(cuda_device),
                                joints.to(cuda_device), gen)
     assert out.device.type == 'cuda' and out.shape == depth.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_engine_replicas_match_one_engine_on_card(cuda_device, dtype):
+    """StreamingEngine(devices=[card, card]) against one engine (the same
+    weights and point draws) on one batch of 8 full 480x640 frames,
+    within chip_smoke.py:replica_errors' limits; a request launches K2
+    twice and K1 four times (each replica once and twice)."""
+    from chip_smoke import replica_errors
+    from keypointfusion_torch.data.synthetic import synthetic_frames
+    from keypointfusion_torch.serving import StreamingEngine
+    frames = synthetic_frames(8, rng=np.random.RandomState(11))
+    args = [frames[k] for k in ('depth', 'rgb', 'centers', 'cube', 'cam')]
+
+    def engine(dt, replicas):
+        return StreamingEngine(Config(), batch_size=8, img_hw=(480, 640),
+                               dtype=dt, seed=0, device=cuda_device,
+                               devices=[cuda_device] * replicas)
+
+    def answer(eng):
+        return eng._unpack(eng.submit(*args).cpu().numpy())
+
+    dt = getattr(torch, dtype)
+    ref32 = answer(engine(torch.float32, 1))
+    one = ref32 if dt == torch.float32 else answer(engine(dt, 1))
+    replicas = engine(dt, 2)
+    errors = replica_errors(answer(replicas), one, ref32, dt)
+    assert all(e <= limit for e, limit in errors.values()), errors
+    sampler, desa = ((k2.KERNEL, k1.KERNEL) if dt == torch.float32 else
+                     (k2.SERVING_KERNEL, k1.SERVING_KERNEL))
+    torch.cuda.synchronize()
+    sampler.launches = desa.launches = 0
+    replicas.submit(*args)
+    torch.cuda.synchronize()
+    assert (sampler.launches, desa.launches) == (2, 4)
+
+
+@pytest.mark.cuda
+def test_global_batch_norm_nccl_world_of_one_on_card(cuda_device, tmp_path):
+    """models/norm.py:global_batch_norm with its all-reduces on NCCL (a
+    process group of one rank) against torch's train-mode BatchNorm:
+    outputs, input gradients and running statistics within
+    chip_smoke.py's PARALLEL_BN_TOL of scale."""
+    import torch.distributed as dist
+    from chip_smoke import PARALLEL_BN_TOL, global_batch_norm_errors
+    from keypointfusion_torch.parallel.mesh import init_process_group
+    group = init_process_group('nccl', 0, 1, store=dist.FileStore(
+        str(tmp_path / 'store'), 1))
+    try:
+        errors = global_batch_norm_errors(cuda_device, group)
+    finally:
+        dist.destroy_process_group()
+    assert all(e <= PARALLEL_BN_TOL for e in errors.values()), errors
+
+
+@pytest.mark.cuda
+def test_native_core_matches_jax_samples_on_card_machine(cuda_device):
+    """The fixture's test split through data/native.py (built with g++ on
+    the card's machine) against the JAX package's default-route samples
+    in tests/fixtures/torch_port_dexycb/native_samples.npz, every value
+    equal."""
+    from chip_smoke import native_fixture_differences
+    values, differ = native_fixture_differences()
+    assert values > 0 and differ == 0, (values, differ)
+
+
+@pytest.mark.cuda
+def test_vis_debug_fixture_on_card_machine(cuda_device):
+    """utils/vis.py's debug renderers on the [vis_debug] fixture's inputs
+    (tests/fixtures/torch_port_vis/vis_debug.npz), their arrays, PNGs read
+    back and .obj bytes against the JAX package's digests stored there."""
+    from chip_smoke import vis_fixture_differences
+    n_outputs, differ = vis_fixture_differences()
+    assert n_outputs > 200 and not differ, differ

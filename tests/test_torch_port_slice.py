@@ -230,9 +230,10 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax():
     """Importing every module of the port loads neither JAX nor the JAX
     package, nor an image library (cv2, PIL, imageio: the card's machine
-    has none), and no source of the port or of its card scripts imports
-    them. The ranks that parallel/dryrun.py spawns check their own
-    modules (tests/test_torch_port_parallel.py:test_dryrun_two_ranks)."""
+    has none), and no source of the port, of its card scripts or of the
+    test cases chip_smoke.py loads imports them. The ranks that
+    parallel/dryrun.py spawns check their own modules
+    (tests/test_torch_port_parallel.py:test_dryrun_two_ranks)."""
     names = [m.name for m in pkgutil.walk_packages(
         keypointfusion_torch.__path__, 'keypointfusion_torch.')]
     assert {'keypointfusion_torch.serving',
@@ -277,7 +278,10 @@ def test_port_imports_no_jax():
                    timeout=300)
     sources = sorted((REPO / 'keypointfusion_torch').rglob('*.py'))
     sources += [REPO / 'chip_smoke.py',
-                *sorted((REPO / 'scripts').glob('torch_*.py'))]
+                *sorted((REPO / 'scripts').glob('torch_*.py')),
+                # the numpy-only cases that chip_smoke.py loads on the card
+                REPO / 'tests' / 'torch_port_extra_cases.py',
+                REPO / 'tests' / 'torch_port_vis_cases.py']
     for path in sources:
         for mod in _imported_modules(path):
             assert mod.split('.')[0] not in FORBIDDEN, (path, mod)
