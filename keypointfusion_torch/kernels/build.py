@@ -34,6 +34,8 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
+from keypointfusion_torch.utils.profiling import span
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_DIR = PACKAGE_DIR / '_build'
@@ -57,11 +59,16 @@ def _nvcc() -> str:
 class CudaKernel:
     """One C entry point of one .cu source, built on first use.
 
-    `launches` counts the launches that returned without error."""
+    `launches` counts the launches that returned without error. Under
+    torch's profiler each launch sits in a span `kpf.kernel.<name>`
+    (utils/profiling.py), so the trace puts the kernel's device time and
+    the idle gap before it down to the kernel: the ctypes call opens no
+    torch operator of its own."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence):
         self.name = name
+        self.span = 'kpf.kernel.' + name
         self.source = CSRC_DIR / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
@@ -91,7 +98,9 @@ class CudaKernel:
         return self._fn
 
     def launch(self, *args) -> None:
-        rc = self.load()(*args)
+        fn = self.load()
+        with span(self.span):
+            rc = fn(*args)
         if rc != 0:
             raise RuntimeError(f'{self.name}: kernel launch failed with '
                                f'cudaError {rc}')

@@ -69,6 +69,7 @@ from keypointfusion_torch.models.unet import ResNetUNet
 from keypointfusion_torch.ops.codecs import offset_to_joint_weight
 from keypointfusion_torch.ops.resize import resize_nearest_torch
 from keypointfusion_torch.utils.device import resolve_device
+from keypointfusion_torch.utils.profiling import span
 
 
 def backbone(net: str, in_channels: int, dim: int, out_dims):
@@ -112,50 +113,54 @@ class KPFusion(nn.Module):
         """rgb [B,S,S,3], depth [B,S,S,1] (normalized crop, background 1),
         pcl [B,N,3] normalized xyz; generator (on the inputs' device)
         draws the dropout masks in train mode. Returns (results,
-        spatial_weights)."""
-        train = self.training
-        j = self.joint_num
-        dt, bb = self.dtype, self.backbone_dtype
-        img_offset, img_feat = (
-            t.to(dt) for t in self.backbone_d(depth.to(bb), generator))
-        img_offset_rgb, img_feat_rgb = (
-            t.to(dt) for t in self.backbone_rgb(rgb.to(bb), generator))
-        b, h = img_feat.shape[0], img_feat.shape[1]
+        spatial_weights). Spans: `kpf.model`, the whole forward;
+        `kpf.model.backbones`, the two backbones inside it."""
+        with span('kpf.model'):
+            train = self.training
+            j = self.joint_num
+            dt, bb = self.dtype, self.backbone_dtype
+            with span('kpf.model.backbones'):
+                img_offset, img_feat = (
+                    t.to(dt) for t in self.backbone_d(depth.to(bb), generator))
+                img_offset_rgb, img_feat_rgb = (
+                    t.to(dt) for t in self.backbone_rgb(rgb.to(bb), generator))
+            b, h = img_feat.shape[0], img_feat.shape[1]
 
-        joint_uvd = offset_to_joint_weight(img_offset, depth,
-                                           kernel).detach()
-        weight_map = img_offset[..., 4 * j:5 * j].detach()
-        img_down = resize_nearest_torch(depth, h)
-        joint_xyz = uvd_nl_to_xyz_nl(joint_uvd, frame)
+            joint_uvd = offset_to_joint_weight(img_offset, depth,
+                                               kernel).detach()
+            weight_map = img_offset[..., 4 * j:5 * j].detach()
+            img_down = resize_nearest_torch(depth, h)
+            joint_xyz = uvd_nl_to_xyz_nl(joint_uvd, frame)
 
-        # one sampling pass serves both blocks (the maps do not change
-        # between stages)
-        maps = torch.cat([img_feat, img_feat_rgb, weight_map], dim=-1)
-        flat = maps.reshape(b, h * h, -1)
-        if train:
-            closeness, index = img_to_pcl_index(pcl, img_down, frame,
-                                                select_num=4)
-            sampled = sample_pixel_features(flat, closeness.detach(), index)
-        else:
-            img_xyz = uvd_nl_to_xyz_nl(img_uvd_points(img_down), frame)
-            sampler = sample_pixel_features_fused if self.use_kernels \
-                else sample_pixel_features_plain
-            sampled = sampler(pcl.contiguous(), img_xyz, flat, k=4,
-                              mode='highest' if dt == torch.float32
-                              else 'default')
+            # one sampling pass serves both blocks (the maps do not change
+            # between stages)
+            maps = torch.cat([img_feat, img_feat_rgb, weight_map], dim=-1)
+            flat = maps.reshape(b, h * h, -1)
+            if train:
+                closeness, index = img_to_pcl_index(pcl, img_down, frame,
+                                                    select_num=4)
+                sampled = sample_pixel_features(flat, closeness.detach(),
+                                                index)
+            else:
+                img_xyz = uvd_nl_to_xyz_nl(img_uvd_points(img_down), frame)
+                sampler = sample_pixel_features_fused if self.use_kernels \
+                    else sample_pixel_features_plain
+                sampled = sampler(pcl.contiguous(), img_xyz, flat, k=4,
+                                  mode='highest' if dt == torch.float32
+                                  else 'default')
 
-        results = [img_offset, img_offset_rgb]
-        spatial_weights = []
-        updated: Optional[torch.Tensor] = None
-        for i in range(self.num_stages):
-            refined_3d, refined_2d, updated, sw = getattr(
-                self, f'block{i + 1}')(
-                img_feat, img_feat_rgb, pcl, joint_xyz, sampled, updated,
-                frame, img_down, kernel, self.use_kernels, generator)
-            results += [refined_3d, refined_2d]
-            spatial_weights.append(sw)
-            joint_xyz = refined_2d
-        return tuple(results), tuple(spatial_weights)
+            results = [img_offset, img_offset_rgb]
+            spatial_weights = []
+            updated: Optional[torch.Tensor] = None
+            for i in range(self.num_stages):
+                refined_3d, refined_2d, updated, sw = getattr(
+                    self, f'block{i + 1}')(
+                    img_feat, img_feat_rgb, pcl, joint_xyz, sampled, updated,
+                    frame, img_down, kernel, self.use_kernels, generator)
+                results += [refined_3d, refined_2d]
+                spatial_weights.append(sw)
+                joint_xyz = refined_2d
+            return tuple(results), tuple(spatial_weights)
 
 
 def model_dtypes(compute_dtype: str):

@@ -34,6 +34,7 @@ from keypointfusion_torch.data.device_preprocess import device_preprocess
 from keypointfusion_torch.geometry.camera import xyz_nl_to_uvd_nl
 from keypointfusion_torch.models.kpfusion import build_kpfusion
 from keypointfusion_torch.utils.device import resolve_device
+from keypointfusion_torch.utils.profiling import span
 
 
 class StreamingEngine:
@@ -128,21 +129,27 @@ class StreamingEngine:
                centers: np.ndarray, cube: np.ndarray,
                cam: np.ndarray) -> torch.Tensor:
         """Enqueue one batch; returns the packed [B, 2*3J+9] device tensor
-        (on the card, ready once the current stream reaches it)."""
-        expected = (self.batch_size,) + self.img_hw
-        if depth_full.shape != expected or depth_full.dtype != np.uint16:
-            raise ValueError(f'depth must be uint16 {expected}, got '
-                             f'{depth_full.dtype} {depth_full.shape}')
-        if rgb_full.shape != expected + (3,) or rgb_full.dtype != np.uint8:
-            raise ValueError(f'rgb must be uint8 {expected + (3,)}, got '
-                             f'{rgb_full.dtype} {rgb_full.shape}')
-        # uint16 travels as its int16 bit pattern (every PyTorch version
-        # copies int16) and is widened on the device
-        depth = self._to_device(depth_full.view(np.int16)).int() & 0xFFFF
-        return self.pipeline(depth, self._to_device(rgb_full),
-                             self._to_device(centers.astype(np.float32)),
-                             self._to_device(cube.astype(np.float32)),
-                             self._to_device(cam.astype(np.float32)))
+        (on the card, ready once the current stream reaches it). Spans:
+        `kpf.engine.submit`, the whole host call; inside it
+        `kpf.engine.stage`, the five arrays' host staging (contiguity, the
+        pinned allocation, the host copy, the copies' enqueue)."""
+        with span('kpf.engine.submit'):
+            expected = (self.batch_size,) + self.img_hw
+            if depth_full.shape != expected or depth_full.dtype != np.uint16:
+                raise ValueError(f'depth must be uint16 {expected}, got '
+                                 f'{depth_full.dtype} {depth_full.shape}')
+            if rgb_full.shape != expected + (3,) or \
+                    rgb_full.dtype != np.uint8:
+                raise ValueError(f'rgb must be uint8 {expected + (3,)}, got '
+                                 f'{rgb_full.dtype} {rgb_full.shape}')
+            # uint16 travels as its int16 bit pattern (every PyTorch
+            # version copies int16) and is widened on the device
+            with span('kpf.engine.stage'):
+                staged = [self._to_device(a) for a in (
+                    depth_full.view(np.int16), rgb_full,
+                    centers.astype(np.float32), cube.astype(np.float32),
+                    cam.astype(np.float32))]
+            return self.pipeline(staged[0].int() & 0xFFFF, *staged[1:])
 
     def _unpack(self, packed: np.ndarray) -> Dict[str, np.ndarray]:
         j = self._joint_num
@@ -197,11 +204,14 @@ class _Replica:
     def answer(self, cfg: Config, depth_full, rgb_full, centers, cube, cam,
                uniform) -> torch.Tensor:
         """Packed [b, 2*3J+9] float32 for rows on this replica's device,
-        on the current stream."""
-        rgb, depth, pcl, frame = device_preprocess(
-            depth_full.float(), rgb_full.float(), centers.float(),
-            cube.float(), cam.float(), cfg.input_size, cfg.point_num,
-            uniform=uniform)
+        on the current stream. Span `kpf.engine.preprocess`: the call of
+        device_preprocess (the crops, their normalization, the point
+        draw), its arguments' casts outside it."""
+        frames = (depth_full.float(), rgb_full.float(), centers.float(),
+                  cube.float(), cam.float())
+        with span('kpf.engine.preprocess'):
+            rgb, depth, pcl, frame = device_preprocess(
+                *frames, cfg.input_size, cfg.point_num, uniform=uniform)
         results, _ = self.model(rgb, depth, pcl, frame, cfg.feature_para[0])
         joint_xyz = results[-1]
         joint_uvd = xyz_nl_to_uvd_nl(joint_xyz, frame)

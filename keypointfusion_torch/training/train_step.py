@@ -61,6 +61,7 @@ from keypointfusion_torch.parallel.mesh import (
     all_gather_rows, all_mean, world_size,
 )
 from keypointfusion_torch.training.losses import compute_losses
+from keypointfusion_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -218,38 +219,45 @@ def make_train_step(cfg: Config, group=None) -> Callable:
 
     def train_step(state: TrainState, batch: Batch,
                    generator: Optional[torch.Generator] = None, epoch=0):
-        model = state.model.train()
-        frame = frame_from_batch(batch, cfg)
+        """Spans: `kpf.train.step`, the whole step on the host; inside it
+        `kpf.train.forward` (the forward, or checkpoint's) and
+        `kpf.train.loss` (compute_losses)."""
+        with span('kpf.train.step'):
+            model = state.model.train()
+            frame = frame_from_batch(batch, cfg)
 
-        def forward():
-            return model(batch['rgb'], batch['depth'], batch['pcl'], frame,
-                         kernel, generator)
+            def forward():
+                return model(batch['rgb'], batch['depth'], batch['pcl'],
+                             frame, kernel, generator)
 
-        state.optimizer.zero_grad(set_to_none=True)
-        with global_batch_statistics(model, stats_group):
-            if cfg.remat:
-                results, sw = checkpoint(
-                    forward, use_reentrant=False,
-                    context_fn=lambda: _remat_contexts(model, generator))
-            else:
-                results, sw = forward()
-            loss, metrics = compute_losses(results, sw, batch['depth'],
-                                           batch['uvd_gt'], batch['xyz_gt'],
-                                           frame, cfg, epoch, stats_group)
-            loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if world > 1:
-            all_mean([p.grad for p in model.parameters()
-                      if p.grad is not None], group)
-            if per_shard:
-                all_mean(_statistics(model), group)
-            names = list(metrics)
-            values = torch.stack([metrics[k].float() for k in names])
-            all_mean([values], group)
-            metrics = dict(zip(names, values.unbind()))
-        apply_gradients(state)
-        state.step += 1
-        return state, metrics
+            state.optimizer.zero_grad(set_to_none=True)
+            with global_batch_statistics(model, stats_group):
+                with span('kpf.train.forward'):
+                    if cfg.remat:
+                        results, sw = checkpoint(
+                            forward, use_reentrant=False,
+                            context_fn=lambda: _remat_contexts(model,
+                                                               generator))
+                    else:
+                        results, sw = forward()
+                with span('kpf.train.loss'):
+                    loss, metrics = compute_losses(
+                        results, sw, batch['depth'], batch['uvd_gt'],
+                        batch['xyz_gt'], frame, cfg, epoch, stats_group)
+                loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if world > 1:
+                all_mean([p.grad for p in model.parameters()
+                          if p.grad is not None], group)
+                if per_shard:
+                    all_mean(_statistics(model), group)
+                names = list(metrics)
+                values = torch.stack([metrics[k].float() for k in names])
+                all_mean([values], group)
+                metrics = dict(zip(names, values.unbind()))
+            apply_gradients(state)
+            state.step += 1
+            return state, metrics
 
     return train_step
 

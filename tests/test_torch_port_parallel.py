@@ -56,6 +56,7 @@ Tolerances:
 
 import contextlib
 import copy
+import json
 import os
 import subprocess
 import sys
@@ -498,18 +499,20 @@ def test_dryrun_two_ranks():
 # ---------------------------------------------------------- profiling --
 
 def test_profiling_trace_and_step_timer(tmp_path):
-    """trace() writes a Chrome trace holding the annotated range;
-    StepTimer's throughput is the batch over the mean step."""
+    """trace() writes a Chrome trace holding the port's spans nested as
+    they were opened, around the operators they ran (the step timer,
+    which nothing read, is gone)."""
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate('kpf_step'):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    text = (tmp_path / 'trace.json').read_text()
-    assert 'kpf_step' in text and 'traceEvents' in text
-    timer = profiling.StepTimer(window=2)
-    assert timer.throughput(8) == 0.0
-    timer._last = 0.0
-    timer.times = [0.5, 0.25]
-    assert timer.mean_step_s == 0.375
-    assert timer.throughput(3) == 8.0
-    timer.tick()
-    assert len(timer.times) == 2
+        with profiling.span('kpf.outer'):
+            with profiling.span('kpf.inner'):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    events = [e for e in json.loads((tmp_path / 'trace.json').read_text())[
+        'traceEvents'] if e.get('ph') == 'X']
+    spans = {e['name']: (e['ts'], e['ts'] + e['dur']) for e in events
+             if e['name'].startswith('kpf.')}
+    assert set(spans) == {'kpf.outer', 'kpf.inner'}
+    (o0, o1), (i0, i1) = spans['kpf.outer'], spans['kpf.inner']
+    assert o0 <= i0 <= i1 <= o1
+    (mm,) = [e for e in events if e['name'] == 'aten::mm']
+    assert i0 <= mm['ts'] <= mm['ts'] + mm['dur'] <= i1
+    assert not hasattr(profiling, 'StepTimer')
