@@ -4,18 +4,45 @@ order is [3J offsets (ch = j*3 + axis), J heatmap, J weight]."""
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 from keypointfusion_torch.geometry.grid import uv_grid
 from keypointfusion_torch.ops.resize import resize_nearest_torch
+from keypointfusion_torch.utils.device import device_constant
 
 
-def _kernel_arr(kernel_size, joint_num, device=None):
-    """Scalar or per-joint [J] kernel -> [1, J] float32."""
+def _kernel_row(kernel_size, joint_num, device=None):
     k = torch.as_tensor(kernel_size, dtype=torch.float32, device=device)
     if k.ndim == 0:
         k = k.expand(joint_num)
     return k[None, :]
+
+
+def _kernel_key(kernel_size):
+    """A float, or a tuple of floats for a per-joint list; None for a
+    tensor or a value of another shape."""
+    if isinstance(kernel_size, torch.Tensor):
+        return None
+    if isinstance(kernel_size, numbers.Real):
+        return float(kernel_size)
+    try:
+        return tuple(float(v) for v in kernel_size)
+    except (TypeError, ValueError):
+        return None
+
+
+def _kernel_arr(kernel_size, joint_num, device=None):
+    """Scalar or per-joint [J] kernel -> [1, J] float32: for a number or
+    a list of numbers one tensor per (value, J, device), shared by every
+    caller (read it, never write into it); a tensor is converted on every
+    call."""
+    key = _kernel_key(kernel_size)
+    if key is None:
+        return _kernel_row(kernel_size, joint_num, device)
+    return device_constant(('kernel_row', key, int(joint_num)), device,
+                           lambda d: _kernel_row(key, joint_num, d))
 
 
 def _pixel_coords(depth, size: int):

@@ -6,8 +6,10 @@ torch.profiler a small StreamingEngine and one train step open each span
 once a request or a step, the registry holding one traced window; the
 profiler changes no output; and each new metric reads, through the
 benchmark's small runs, a positive host time, 0 host waits, and no
-device time. The tests marked `cuda` count host waits on the card and
-find the kernels' spans in the device trace:
+device time. The tests marked `cuda` count host waits on the card, find
+the kernels' spans in the device trace, hold the float32 eval forward and
+the serving pipeline to no host wait at all (torch's sync debug mode set
+to 'error'), and find none counted in the train step's forward and loss:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_tracing.py
 """
@@ -28,7 +30,7 @@ from keypointfusion_torch.data.synthetic import (
 )
 from keypointfusion_torch.serving import StreamingEngine
 from keypointfusion_torch.training.train_step import (
-    batch_to_device, create_train_state, make_train_step,
+    batch_to_device, create_train_state, make_eval_step, make_train_step,
 )
 from keypointfusion_torch.utils import profiling
 from portbench import harness, trace
@@ -270,3 +272,75 @@ def test_kernel_launch_ranges_end_with_its_span(cuda_device):
     (kernel,) = view.kernels('pixel_sampler_kernel')
     assert kernel.ranges[-1] == 'kpf.kernel.pixel_sampler', kernel.ranges
     assert kernel.launcher == 'kpf.kernel.pixel_sampler'
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Every synchronizing CUDA call raises inside the block."""
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_eval_forward_makes_no_host_wait(cuda_device):
+    """The float32 eval forward at batch 2, K1 and K2 'highest' included,
+    after one warm-up call: the grid and the codecs' kernel row are the
+    device's constants by then, so nothing in it waits on the card."""
+    cfg = Config(compute_dtype='float32')
+    batch = batch_to_device(synthetic_batch(batch_size=2, seed=3),
+                            cuda_device)
+    state = create_train_state(cfg, batch, device=cuda_device, seed=0)
+    step = make_eval_step(cfg)
+    step(state, batch)
+    with sync_errors():
+        results, _ = step(state, batch)
+    assert bool(torch.isfinite(results[-1]).all())
+
+
+@pytest.mark.cuda
+def test_serving_pipeline_makes_no_host_wait(cuda_device):
+    """StreamingEngine.pipeline (float32, batch 2) on device-resident
+    frames after one warm-up call: preprocessing, the forward and the
+    packing wait on nothing."""
+    engine = StreamingEngine(Config(), batch_size=2, img_hw=(120, 160),
+                             dtype=torch.float32, device=cuda_device)
+    f = synthetic_frames(2, 120, 160)
+    args = [torch.from_numpy(f['depth'].astype(np.int32)).to(cuda_device),
+            torch.from_numpy(f['rgb']).to(cuda_device)] + [
+        torch.from_numpy(f[k].astype(np.float32)).to(cuda_device)
+        for k in ('centers', 'cube', 'cam')]
+    engine.pipeline(*args)
+    with sync_errors():
+        packed = engine.pipeline(*args)
+    assert bool(torch.isfinite(packed).all())
+
+
+@pytest.mark.cuda
+def test_train_step_forward_and_loss_count_no_host_wait(cuda_device,
+                                                        record_property):
+    """One float32 train step at batch 2 under the profiler, after one
+    warm-up step: spans `kpf.model` and `kpf.train.loss` count 0 host
+    waits. Waits elsewhere in the step are recorded, not held."""
+    cfg = Config(compute_dtype='float32')
+    batch = batch_to_device(synthetic_batch(batch_size=2, seed=3),
+                            cuda_device)
+    state = create_train_state(cfg, batch, device=cuda_device, seed=0)
+    step = make_train_step(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    state, _ = step(state, batch, gen, 0)
+    torch.cuda.synchronize()
+    off()
+    with card_profile():
+        state, metrics = step(state, batch, gen, 1)
+    totals = profiling.totals()
+    record_property('waits', {n: e['sites'] for n, e in totals.items()})
+    assert set(TRAIN_SPANS) <= set(totals)
+    assert totals['kpf.model']['waits'] == 0, totals['kpf.model']
+    assert totals['kpf.train.loss']['waits'] == 0, totals['kpf.train.loss']
+    assert bool(torch.isfinite(metrics['loss']))
