@@ -4,10 +4,13 @@ comparison with the plain reference, and prints the result line.
 
 Everything that belongs to one configuration, one traffic mix or one
 per-layer metric is a file of its own, found by name:
-  portbench/configs/<config>.json   the configuration as it is run
-  portbench/traffic/<traffic>.json  the mix: `kind` names its run class in
-                                    portbench/kinds/, the rest its
-                                    parameters
+  portbench/configs/<config>.json   the configuration as it is run; an
+                                    optional `reference` names its own
+                                    plain reference in
+                                    portbench/reference/ (shared.reference)
+  portbench/traffic/<traffic>.json  the mix: `kind` names its run class,
+                                    portbench/kinds/<kind>.py, the rest
+                                    its parameters
   portbench/limits/<workload>.json  each compared number's limit
   portbench/metrics/<metric>.py     `read(view)` of one per-layer metric
 Paths are taken from a checkout's root (`root`), the repository's by
@@ -16,7 +19,6 @@ default.
 
 from __future__ import annotations
 
-import importlib
 import importlib.util
 import json
 import os
@@ -48,6 +50,7 @@ class Cell:
             raise Refused(f'no workload {name!r} in BENCHMARK.json')
         self.entry = by_name[name]
         self.name = name
+        self.root = root
         self.chips = int(self.entry['chips'])
         conf = {c['name']: c for c in bench['configs']}[self.entry['config']]
         bench_dir = os.path.join(root, 'portbench')
@@ -63,19 +66,25 @@ class Cell:
                           if name in m.get('workloads', [name])]
 
 
-def reader(name: str, root: str = ROOT):
-    """The `read(view)` function of per-layer metric `name`."""
-    path = os.path.join(root, 'portbench', 'metrics', name + '.py')
+def load_file(kind: str, name: str, root: str = ROOT):
+    """The module of portbench/<kind>/<name>.py in the checkout at `root`,
+    loaded by path."""
+    path = os.path.join(root, 'portbench', kind, name + '.py')
     spec = importlib.util.spec_from_file_location(
-        'portbench_metric_' + name.replace('.', '_').replace('-', '_'), path)
+        f'portbench_{kind}_' + name.replace('.', '_').replace('-', '_'), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
 
 
-def run_class(kind: str):
+def reader(name: str, root: str = ROOT):
+    """The `read(view)` function of per-layer metric `name`."""
+    return load_file('metrics', name, root).read
+
+
+def run_class(kind: str, root: str = ROOT):
     """The run class of a traffic kind (portbench/kinds/<kind>.py)."""
-    return importlib.import_module(f'portbench.kinds.{kind}').Run
+    return load_file('kinds', kind, root).Run
 
 
 def forbidden_loaded(names=None) -> List[str]:
@@ -119,7 +128,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     flags = cell.config.get('tf32', False)
     torch.backends.cuda.matmul.allow_tf32 = flags
     torch.backends.cudnn.allow_tf32 = flags
-    run = run_class(cell.traffic['kind'])(cell, seed, device, small or {})
+    run = run_class(cell.traffic['kind'], root)(cell, seed, device,
+                                                small or {})
     run.set_up()
     setup_s = time.time() - t_start
     metrics = {}

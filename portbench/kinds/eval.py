@@ -25,7 +25,7 @@ import torch
 
 from portbench import inputs, trace, weights
 from portbench.shared import (
-    Tf32, reference_model, release, sync, work_info,
+    Tf32, reference, reference_model, release, sync, work_info,
 )
 
 
@@ -37,6 +37,8 @@ class Run:
         self.ring = t['ring']
         self.warmup = t['warmup_steps']
         self.trace_steps = small.get('trace_steps', t['trace_steps'])
+        self.config = c
+        self.ref = reference(c, cell.root)
         self.net = c['net']
         self.points = small.get('point_num', c['point_num'])
         self.joints = c['joint_num']
@@ -50,8 +52,8 @@ class Run:
         from keypointfusion_torch.training.train_step import make_eval_step
         self.batches = inputs.crops(self.seed, self.ring, self.batch,
                                     self.points, self.device, self.joints)
-        self.weights = weights.state_dict(self.net, self.seed, self.device,
-                                          self.joints)
+        self.weights = weights.state_dict(self.ref.KPFusion, self.config,
+                                          self.seed, self.device)
         cfg = Config(net=self.net, point_num=self.points,
                      compute_dtype='float32')
         model = build_kpfusion(cfg, self.device, dtype=torch.float32)
@@ -99,8 +101,8 @@ class Run:
         finally:
             for h in hooks:
                 h.remove()
-        view.info.update(work_info(self.net, self.joints, self.points,
-                                   self.batch, calls))
+        view.info.update(work_info(self.ref.KPFusion, self.config,
+                                   self.points, self.batch, calls))
         return view
 
     def free(self):
@@ -113,8 +115,8 @@ class Run:
         """The reference's (results, spatial weights) of each ring batch
         answered in the window."""
         from portbench.reference import geometry as G
-        model = reference_model(self.net, self.joints, self.weights,
-                                self.device).eval()
+        model = reference_model(self.ref.KPFusion, self.config,
+                                self.weights, self.device).eval()
         out = {}
         with Tf32(tf32), torch.no_grad():
             for slot in sorted(self.last):

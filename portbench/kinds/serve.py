@@ -32,7 +32,7 @@ import torch
 
 from portbench import inputs, trace, weights
 from portbench.shared import (
-    Tf32, reference_model, release, sync, work_info,
+    Tf32, reference, reference_model, release, sync, work_info,
 )
 
 
@@ -52,6 +52,8 @@ class Run:
         self.warmup = small.get('warmup_requests', t['warmup_requests'])
         self.trace_requests = small.get('trace_requests', t['trace_requests'])
         self.check_requests = small.get('check_requests', t['check_requests'])
+        self.config = c
+        self.ref = reference(c, cell.root)
         self.net = c['net']
         self.points = small.get('point_num', c['point_num'])
         self.joints = c['joint_num']
@@ -64,8 +66,8 @@ class Run:
         from keypointfusion_torch.serving import StreamingEngine
         self.frames = inputs.frames(self.seed, self.ring, self.batch,
                                     *self.hw, self.device)
-        self.weights = weights.state_dict(self.net, self.seed, self.device,
-                                          self.joints)
+        self.weights = weights.state_dict(self.ref.KPFusion, self.config,
+                                          self.seed, self.device)
         self.cfg = Config(net=self.net, point_num=self.points,
                           seed=config_seed(self.seed))
         self.engine = StreamingEngine(
@@ -142,8 +144,8 @@ class Run:
                 h.remove()
         view.spans['submit'] = [e - s for s, e in
                                 self.submits[state['first']:]]
-        view.info.update(work_info(self.net, self.joints, self.points,
-                                   self.batch, calls))
+        view.info.update(work_info(self.ref.KPFusion, self.config,
+                                   self.points, self.batch, calls))
         return view
 
     def free(self):
@@ -162,7 +164,6 @@ class Run:
     def reference_answers(self, indices, tf32: bool = False):
         """Packed answers [B, 2*3J+9] of the plain reference for the
         requests `indices`, from the same frames, weights and draws."""
-        from portbench.reference.model import pack
         from portbench.reference.preprocess import preprocess
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.cfg.seed)
@@ -172,8 +173,8 @@ class Run:
                            device=self.device)
             if k in indices:
                 draws[k] = u
-        model = reference_model(self.net, self.joints, self.weights,
-                                self.device).eval()
+        model = reference_model(self.ref.KPFusion, self.config,
+                                self.weights, self.device).eval()
         out = {}
         with Tf32(tf32), torch.no_grad():
             for k in indices:
@@ -183,7 +184,7 @@ class Run:
                     t(f['depth'].astype(np.int32)), t(f['rgb']),
                     t(f['centers']), t(f['cube']), t(f['cam']), draws[k])
                 results, _ = model(rgb, depth, pcl, fr, 0.8)
-                out[k] = pack(results, fr)
+                out[k] = self.ref.pack(results, fr)
         return out
 
     def packed(self, k) -> torch.Tensor:

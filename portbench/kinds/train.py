@@ -32,7 +32,8 @@ import torch
 
 from portbench import inputs, trace, weights
 from portbench.shared import (
-    Tf32, leaf_gap, median_gap, reference_model, release, sync, work_info,
+    Tf32, leaf_gap, median_gap, reference, reference_model, release, sync,
+    work_info,
 )
 
 
@@ -45,6 +46,8 @@ class Run:
         self.checked = t['checked_steps']
         self.trace_steps = small.get('trace_steps', t['trace_steps'])
         self.dropout = t['dropout']
+        self.config = c
+        self.ref = reference(c, cell.root)
         self.net = c['net']
         self.points = small.get('point_num', c['point_num'])
         self.joints = c['joint_num']
@@ -59,8 +62,8 @@ class Run:
         )
         self.batches = inputs.crops(self.seed, self.ring, self.batch,
                                     self.points, self.device, self.joints)
-        self.weights = weights.state_dict(self.net, self.seed, self.device,
-                                          self.joints)
+        self.weights = weights.state_dict(self.ref.KPFusion, self.config,
+                                          self.seed, self.device)
         cfg = Config(net=self.net, point_num=self.points, opt='adamw',
                      lr=self.opt['lr'], compute_dtype='float32')
         self.state = create_train_state(cfg, self.batches[0], self.device,
@@ -111,7 +114,8 @@ class Run:
     def traced(self) -> trace.View:
         view = trace.record(lambda: self.steps(count=self.trace_steps),
                             self.batch)
-        info = work_info(self.net, self.joints, self.points, self.batch, [])
+        info = work_info(self.ref.KPFusion, self.config, self.points,
+                         self.batch, [])
         # forward, and a backward of twice its products
         view.info['flops_per_unit'] = 3 * info['flops_per_unit']
         return view
@@ -127,8 +131,8 @@ class Run:
         on the first half of each batch's rows (a fault the comparison
         must catch)."""
         from portbench.reference import train as RT
-        model = reference_model(self.net, self.joints, self.weights,
-                                self.device, self.dropout)
+        model = reference_model(self.ref.KPFusion, self.config,
+                                self.weights, self.device, self.dropout)
         batches = [self.batches[i % self.ring] for i in range(self.checked)]
         if half:
             batches = [{k: v[:v.shape[0] // 2] for k, v in b.items()}

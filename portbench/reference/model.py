@@ -12,6 +12,13 @@ the pixel sampler sorts the full distance matrix. Dropout draws its masks
 from the generator passed to forward, in a fixed order: per fusion block,
 the first keypoint encoder, the cross decoder's last layer, the second
 keypoint encoder; inside each, in the order the layers run.
+
+Builds every backbone the port lists: KPFusion-resnet-18 (BasicBlock),
+-50, -101 and -152 (Bottleneck, expansion 4), and KPFusion-convnext-T, -S,
+-B and -L. A configuration may bring a reference file of its own
+(`reference` in its file, loaded by portbench/shared.py:reference); it
+defines `KPFusion` and `pack` with this module's constructor, forward,
+results and state_dict names.
 """
 
 from __future__ import annotations
@@ -25,8 +32,14 @@ from torch import nn
 
 from portbench.reference import geometry as G
 
-RESNET = {18: (2, 2, 2, 2)}
-CONVNEXT = {'T': ((3, 3, 9, 3), (96, 192, 384, 768))}
+# blocks a stage; 50 and deeper take the Bottleneck (expansion 4)
+RESNET = {18: (2, 2, 2, 2), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
+          152: (3, 8, 36, 3)}
+# (depths, widths) a stage
+CONVNEXT = {'T': ((3, 3, 9, 3), (96, 192, 384, 768)),
+            'S': ((3, 3, 27, 3), (96, 192, 384, 768)),
+            'B': ((3, 3, 27, 3), (128, 256, 512, 1024)),
+            'L': ((3, 3, 27, 3), (192, 384, 768, 1536))}
 
 
 def bn(x, m: nn.modules.batchnorm._BatchNorm, channel_last: bool = False):
@@ -85,6 +98,8 @@ class Residual(nn.Module):
 
 
 class BasicBlock(nn.Module):
+    expansion = 1
+
     def __init__(self, i, o, stride):
         super().__init__()
         self.conv1 = nn.Conv2d(i, o, 3, stride, 1, bias=False)
@@ -103,17 +118,46 @@ class BasicBlock(nn.Module):
         return torch.relu(y + r)
 
 
+class Bottleneck(nn.Module):
+    """1x1 down to o, 3x3 at the stride, 1x1 up to 4o (torchvision's
+    v1.5)."""
+    expansion = 4
+
+    def __init__(self, i, o, stride):
+        super().__init__()
+        e = o * self.expansion
+        self.conv1 = nn.Conv2d(i, o, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(o)
+        self.conv2 = nn.Conv2d(o, o, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(o)
+        self.conv3 = nn.Conv2d(o, e, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(e)
+        self.downsample = nn.Sequential(
+            nn.Conv2d(i, e, 1, stride, bias=False), nn.BatchNorm2d(e)) \
+            if stride != 1 or i != e else None
+
+    def forward(self, x):
+        y = torch.relu(bn(self.conv1(x), self.bn1))
+        y = torch.relu(bn(self.conv2(y), self.bn2))
+        y = bn(self.conv3(y), self.bn3)
+        r = x if self.downsample is None else bn(self.downsample[0](x),
+                                                 self.downsample[1])
+        return torch.relu(y + r)
+
+
 class ResNet(nn.Module):
     def __init__(self, depth, cin):
         super().__init__()
+        block = BasicBlock if depth < 50 else Bottleneck
+        self.expansion = block.expansion
         self.conv1 = nn.Conv2d(cin, 64, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         i = 64
         for s, (o, n) in enumerate(zip((64, 128, 256, 512), RESNET[depth])):
             blocks = []
             for k in range(n):
-                blocks.append(BasicBlock(i, o, 2 if s > 0 and k == 0 else 1))
-                i = o
+                blocks.append(block(i, o, 2 if s > 0 and k == 0 else 1))
+                i = o * block.expansion
             setattr(self, f'layer{s + 1}', nn.Sequential(*blocks))
 
     def forward(self, x):
@@ -177,21 +221,23 @@ class UNet(nn.Module):
     def __init__(self, net: str, cin: int, dim: int = 128, j: int = 21):
         super().__init__()
         kind, size = net.split('-')[-2:]
+        # d: the decoder's widths; enc: the encoder's, its skip inputs
         if kind == 'convnext':
             self.backbone = ConvNeXt(size, cin)
-            d = CONVNEXT[size][1]
+            d = enc = CONVNEXT[size][1]
         else:
             self.backbone = ResNet(int(size), cin)
             d = (64, 128, 256, 512)
+            enc = tuple(w * self.backbone.expansion for w in d)
         self.convnext = kind == 'convnext'
-        self.up4 = nn.Sequential(Residual(d[3], d[3]))
-        self.skip_layer4 = Residual(d[2], d[2])
+        self.up4 = nn.Sequential(Residual(enc[3], d[3]))
+        self.skip_layer4 = Residual(enc[2], d[2])
         self.fusion_layer4 = Residual(d[3] + d[2], d[2])
         self.up3 = nn.Sequential(Residual(d[2], d[2]))
-        self.skip_layer3 = Residual(d[1], d[1])
+        self.skip_layer3 = Residual(enc[1], d[1])
         self.fusion_layer3 = Residual(d[2] + d[1], d[1])
         self.up2 = nn.Sequential(Residual(d[1], d[1]))
-        self.skip_layer2 = Residual(d[0], d[0])
+        self.skip_layer2 = Residual(enc[0], d[0])
         self.fusion_layer2 = Residual(d[1] + d[0], dim)
         if self.convnext:
             self.result_emb = Residual(dim, dim)

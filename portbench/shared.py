@@ -1,26 +1,44 @@
-"""What the runs of portbench/kinds/ share: the reference model with a
-run's weights, the TF32 switch of the control, the work the per-layer
-readers divide by, and the gap of two sets of norms."""
+"""What the runs of portbench/kinds/ share: a configuration's plain
+reference and the reference model with a run's weights, the TF32 switch
+of the control, the work the per-layer readers divide by, and the gap of
+two sets of norms."""
 
 from __future__ import annotations
 
+import os
 import statistics
 from typing import Dict
 
 import torch
 
 from portbench import work
+from portbench.harness import ROOT, load_file
 
 
-def work_info(net: str, joints: int, points: int, batch: int,
+def reference(config: dict, root: str = ROOT):
+    """The module of a configuration's plain reference: the file in
+    portbench/reference/ of the checkout at `root` that its `reference`
+    key names, model.py without the key, loaded by path. It defines
+    `KPFusion` and `pack` (see reference/model.py). A run resolves it
+    once and hands its `KPFusion` to the functions below."""
+    name = config.get('reference', 'model.py')
+    stem, ext = os.path.splitext(name)
+    if os.path.basename(name) != name or ext != '.py':
+        raise ValueError(f'reference {name!r}: not a .py file name')
+    return load_file('reference', stem, root)
+
+
+def work_info(kpfusion, config: dict, points: int, batch: int,
               k1_calls) -> dict:
-    """What the rooflines and mfu readers divide by: the model's FLOPs a
-    unit of `batch` frames, each K1 launch's bound (from the points of
-    each DESA call, in launch order) and one K2 launch's bound (32x32
-    maps of 2 x 128 features and J weights)."""
+    """What the rooflines and mfu readers divide by: the configuration's
+    FLOPs a unit of `batch` frames through its reference `kpfusion`, each
+    K1 launch's bound (from the points of each DESA call, in launch
+    order) and one K2 launch's bound (32x32 maps of 2 x 128 features and
+    J weights)."""
+    joints = config['joint_num']
     nbytes, flops = work.k2_work(batch, points, 32 * 32, 2 * 128 + joints)
     return {
-        'flops_per_unit': work.model_flops(net, joints, points=points)
+        'flops_per_unit': work.model_flops(kpfusion, config, points=points)
         * batch,
         'k1_bounds': [work.bound_s(*work.k1_work(
             p, n, 128, (0.1, 0.2, 0.4), (64, 64, 64))) for p, n in k1_calls],
@@ -39,12 +57,12 @@ def release(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
-def reference_model(net: str, joints: int, state: dict, device,
+def reference_model(kpfusion, config: dict, state: dict, device,
                     dropout: float = 0.1):
-    """The plain reference with the run's weights, on `device`."""
-    from portbench.reference.model import KPFusion
+    """The configuration's plain reference `kpfusion` with the run's
+    weights, on `device`."""
     with torch.device('meta'):
-        model = KPFusion(net, joints, rate=dropout)
+        model = kpfusion(config['net'], config['joint_num'], rate=dropout)
     model = model.to_empty(device=device)
     model.load_state_dict(state)
     return model

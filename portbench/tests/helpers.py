@@ -13,6 +13,20 @@ SMALL = {'batch': 2, 'point_num': 128, 'warmup_requests': 1,
          'trace_requests': 1, 'check_requests': 2, 'trace_steps': 1}
 SERVE, TRAIN, EVAL = 'cnxt-t.bulk.f32', 'r18.train.f32.b256', \
     'r18.eval.f32.b256'
+# every net the port lists (keypointfusion_torch/config.py: Config.net)
+NETS = [f'KPFusion-resnet-{d}' for d in (18, 50, 101, 152)] \
+    + [f'KPFusion-convnext-{s}' for s in 'TSBL']
+
+
+def config(name):
+    """The configuration file portbench/configs/<name>.json."""
+    return harness.load_json(os.path.join(harness.ROOT, 'portbench',
+                                          'configs', name + '.json'))
+
+
+def net_config(net, joints=21):
+    """The least configuration the reference's functions read."""
+    return {'net': net, 'joint_num': joints}
 
 
 def run_small(workload, seed=2 ** 31 + 17, seconds=0.5, trace=False,

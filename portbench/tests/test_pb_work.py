@@ -2,9 +2,12 @@
 table's shapes (PERF.md: batch 64, 1024 points, 21 joints, 32x32 maps,
 C = 128 for K1 and 277 for K2)."""
 
+import pytest
 import torch
 
 from portbench import work
+from portbench.shared import reference, work_info
+from portbench.tests.helpers import config, net_config
 
 
 def test_k2_bytes_at_the_table_shapes():
@@ -50,8 +53,27 @@ def test_a_bound_is_the_largest_time_not_the_sum():
 
 
 def test_model_flops_count_products_and_convolutions():
-    r18 = work.model_flops('KPFusion-resnet-18')
-    cnxt = work.model_flops('KPFusion-convnext-T')
+    kpfusion = reference({}).KPFusion
+    r18 = work.model_flops(kpfusion, net_config('KPFusion-resnet-18'))
+    cnxt = work.model_flops(kpfusion, net_config('KPFusion-convnext-T'))
     # the ResNet-18 encoder alone at 128x128 is 2 x 0.58 GFLOP
     assert 3.0e9 < r18 < 6.0e9
     assert cnxt > r18
+
+
+@pytest.mark.parametrize('name,flops', [
+    ('kpfusion-resnet18', 4107797236.0),
+    ('kpfusion-convnext-t', 8609252084.0)])
+def test_the_cells_divide_by_the_same_work(name, flops):
+    # pinned: what the cells' rooflines and mfu readers divide by, so a
+    # change to the reference or its resolution that moves their
+    # readings fails here
+    kpfusion = reference(config(name)).KPFusion
+    assert work.model_flops(kpfusion, config(name)) == flops
+    gen = torch.Generator().manual_seed(5)
+    calls = [(torch.rand(2, 1024, 3, generator=gen) * 0.6 - 0.3,
+              torch.rand(2, 21, 3, generator=gen) * 0.6 - 0.3)]
+    assert work_info(kpfusion, config(name), 1024, 256, calls) == {
+        'flops_per_unit': flops * 256,
+        'k1_bounds': [5.572545939393939e-07],
+        'k2_bound': 0.0001752843462686567}

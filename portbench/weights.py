@@ -13,15 +13,14 @@ weights give activations of order one through the whole depth:
   * running variances: exp(0.2 z);
   * `weight_dis` (a block's gate mix): 0.5 z.
 Batch counters start at 0. The same state_dict loads into the program
-and into the reference."""
+and into the configuration's reference (shared.reference), whose names
+and order it follows."""
 
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
-
-from portbench.reference.model import KPFusion
 
 
 def _role(name: str, shape) -> tuple:
@@ -47,23 +46,27 @@ def _role(name: str, shape) -> tuple:
     return 0.0, 0.05, False
 
 
-def state_dict(net: str, seed: int, device,
-               joint_num: int = 21) -> Dict[str, torch.Tensor]:
-    """The configuration's weights for `seed`, on `device`."""
+def state_dict(kpfusion, config: dict, seed: int,
+               device) -> Dict[str, torch.Tensor]:
+    """The configuration's weights for `seed`, on `device`, in the names
+    and order of its reference `kpfusion`."""
     with torch.device('meta'):
-        shapes = {k: (v.shape, v.dtype) for k, v in
-                  KPFusion(net, joint_num).state_dict().items()}
+        shapes = {k: (v.shape, v.dtype) for k, v in kpfusion(
+            config['net'], config['joint_num']).state_dict().items()}
     drawn = [(k, s) for k, (s, dt) in shapes.items() if dt.is_floating_point]
     roles = [_role(k, s) for k, s in drawn]
     sizes = [s.numel() for _, s in drawn]
+    total = sum(sizes)
     count = torch.tensor(sizes, device=device)
     mean, std, exp = (torch.repeat_interleave(
-        torch.tensor(col, dtype=dt, device=device), count)
+        torch.tensor(col, dtype=dt, device=device), count, output_size=total)
         for col, dt in zip(zip(*roles), (torch.float32, torch.float32,
                                          torch.bool)))
-    gen = torch.Generator(device=device)
+    # meta tensors (the tests' shape checks) draw nothing: a host generator
+    gen = torch.Generator(device=device if torch.device(device).type != 'meta'
+                          else 'cpu')
     gen.manual_seed(seed)
-    flat = torch.randn(sum(sizes), generator=gen, device=device) * std + mean
+    flat = torch.randn(total, generator=gen, device=device) * std + mean
     flat = torch.where(exp, torch.exp(flat), flat)
     out = {k: t.view(s) for (k, s), t in zip(drawn, flat.split(sizes))}
     for k, (s, dt) in shapes.items():

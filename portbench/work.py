@@ -76,16 +76,16 @@ def k2_work(b: int, n: int, hw: int, c: int):
     return nbytes, b * n * hw * 9 + b * n * c * 7
 
 
-def model_flops(net: str, joint_num: int = 21, size: int = 128,
+def model_flops(kpfusion, config: dict, size: int = 128,
                 points: int = 1024) -> float:
-    """FLOPs of one frame's forward through the plain reference
-    (torch.utils.flop_counter: products and convolutions, 2 per
-    multiply-add), counted on meta tensors, so nothing runs."""
+    """FLOPs of one frame's forward through the configuration's plain
+    reference `kpfusion` (torch.utils.flop_counter: products and
+    convolutions, 2 per multiply-add), counted on meta tensors, so
+    nothing runs."""
     from torch.utils.flop_counter import FlopCounterMode
     from portbench.reference import geometry as G
-    from portbench.reference.model import KPFusion
     with torch.device('meta'):
-        model = KPFusion(net, joint_num).eval()
+        model = kpfusion(config['net'], config['joint_num']).eval()
         fr = G.Frame.make(torch.empty(1, 4), torch.empty(1, 3),
                           torch.empty(1, 3, 3), torch.empty(1, 3), size)
         counter = FlopCounterMode(display=False)
